@@ -1,0 +1,11 @@
+from spectrogramgenai_tpu_torch.diffusion.ddpm import (
+    DiffusionSchedule,
+    ddim_sample,
+    ddpm_sample,
+    dpmpp_sample,
+    linear_schedule,
+    to_uint8,
+)
+
+__all__ = ["DiffusionSchedule", "linear_schedule", "ddpm_sample", "ddim_sample", "dpmpp_sample",
+           "to_uint8"]

@@ -1,0 +1,46 @@
+"""Shared helpers of the tests/test_torch_*.py parity tests (not collected)."""
+
+from __future__ import annotations
+
+import jax
+import numpy as np
+
+
+def random_flax_variables(module, *init_args, seed: int = 0) -> dict:
+    """Random variables for a flax module, as nested dicts of numpy arrays.
+
+    Shapes come from tracing ``module.init`` (no compile); values from a
+    numpy seed: kernels normal(0, 1/√fan_in), biases and norm offsets
+    normal(0, 0.1) so that every bias mapping of the bridge is exercised,
+    norm scales 1 + normal(0, 0.1), embeddings normal(0, 1), a codebook
+    uniform(-1/M, 1/M) with ema_weight equal to it.
+    """
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)
+
+    def fill(tree, collection):
+        out = {}
+        for name, leaf in tree.items():
+            if isinstance(leaf, dict):
+                out[name] = fill(leaf, collection)
+                continue
+            shape = leaf.shape
+            if collection == "codebook":
+                continue
+            if name == "kernel":
+                v = rng.standard_normal(shape) / np.sqrt(np.prod(shape[:-1]))
+            elif name == "bias":
+                v = 0.1 * rng.standard_normal(shape)
+            elif name == "scale":
+                v = 1.0 + 0.1 * rng.standard_normal(shape)
+            else:
+                v = rng.standard_normal(shape)
+            out[name] = v.astype(np.float32)
+        if collection == "codebook" and "embedding" in tree:
+            m, _ = tree["embedding"].shape
+            emb = rng.uniform(-1.0 / m, 1.0 / m, tree["embedding"].shape).astype(np.float32)
+            out.update(embedding=emb, ema_weight=emb.copy(),
+                       ema_count=np.zeros(tree["ema_count"].shape, np.float32))
+        return out
+
+    return {col: fill(tree, col) for col, tree in shapes.items()}
