@@ -1,24 +1,41 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path and mel front end once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each fatal on failure (nothing is caught and passed over):
 
-  1. device  — CUDA must be available; prints the card's name and power limit
-               (nvidia-smi).
-  2. build   — compiles csrc/attention_fwd.cu with nvcc from this checkout.
-  3. kernel  — the attention kernel against its plain PyTorch version at the
-               UNet's three fused sites (B·H = 216 = serve batch 27 × CFG 2
-               × 4 heads): f32 ≤ 1e-4 with TF32 off, bf16 ≤ 1e-2 against the
-               f32 upcast of the same inputs, a large-logit row, and the
-               small head dims; kernel and plain times (CUDA events, median).
-  4. serve   — the full-width latent DDPM (UNet width 1.0, 27 classes,
-               64×64×4 latent; VQ-VAE hidden 512, 512 codes) with seeded
-               random weights, saved as checkpoints and served through
-               cli.serve.run (DPM-Solver++ 20 steps, serve batch 27);
-               concurrent POST /generate requests for 32 images, /healthz and
-               /stats; every batch must have gone through the kernel.
+  1. device   — CUDA must be available; prints the card's name and power limit
+                (nvidia-smi).
+  2. build    — compiles csrc/attention_fwd.cu and csrc/mel_power.cu with nvcc
+                from this checkout, one nvcc per source, started together;
+                prints each kernel's registers and spills.
+  3. kernel   — the attention kernel against its plain PyTorch version at the
+                UNet's three fused sites (B·H = 216 = serve batch 27 × CFG 2
+                × 4 heads): f32 ≤ 1e-4 with TF32 off, bf16 ≤ 1e-2 against the
+                f32 upcast of the same inputs, a large-logit row, and the
+                small head dims; kernel, plain and scaled_dot_product_attention
+                times (CUDA events, median) and the bound.
+  4. mel      — each mel kernel rung (exact, high, fast) against its plain
+                version (per element, down to 80 dB under each clip's max)
+                and the float64 oracle on the stress clips of
+                tools/mel_precision_bench.py (its own 64 at 22,050 Hz, 4 clips
+                at 48 kHz, 5 of odd length), within each rung's dB bounds
+                (tests/torch_mel_helpers.py; typical: kind 3 of the tool's 64;
+                adversarial: every clip); kernel, plain and torch.stft +
+                filterbank times at batch 64.
+  5. serve    — the full-width latent DDPM (UNet width 1.0, 27 classes,
+                64×64×4 latent; VQ-VAE hidden 512, 512 codes) with seeded
+                random weights, saved as checkpoints and served through
+                cli.serve.run (DPM-Solver++ 20 steps, serve batch 27);
+                concurrent POST /generate requests for 32 images, /healthz and
+                /stats; every batch must have gone through the kernel.
+  6. gen_specs — a synthetic corpus (32 recordings of 60 s at 22,050 Hz and 2
+                at 48 kHz, 8 detections each) through cli.gen_specs.run on the
+                card, once per rung: every PNG written and 256×256×3, the
+                exact .npy arrays at the exact rung's bound against the oracle,
+                exact and high PNGs within 2 levels, a kernel launch per batch;
+                specs/s and the decode / mel kernel / dB glue / encode split.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when CUDA
@@ -28,9 +45,13 @@ is absent or any check fails.
 from __future__ import annotations
 
 import base64
+import contextlib
+import csv
+import io
 import json
 import math
 import os
+import re
 import statistics
 import struct
 import subprocess
@@ -41,12 +62,23 @@ import time
 import urllib.request
 import zlib
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 SERVE_BATCH = 27
 NUM_STEPS = 20
 SA_SITES = (("sa_0", 1024, 32), ("sa_4", 1024, 16), ("sa_5", 4096, 16))  # name, N, head dim
 BH = SERVE_BATCH * 2 * 4
 REQUESTS = ({"label": "class00", "count": 1}, {"label": 5, "count": 4}, {"label": 26, "count": 27})
+KERNEL_SOURCES = ("attention_fwd", "mel_power")
+# H100 SXM peaks (NVIDIA's data sheet): memory rate, bf16 tensor cores, and the
+# scalar float32 rate, which is also the float64 tensor-core rate
+H100_BYTES_PER_S, H100_BF16_FLOPS, H100_F32_FLOPS = 3.35e12, 989e12, 67e12
+MEL_RUNGS = ((True, "exact", "spectrogramgenai_tpu/ops/mel_kernel.py:94"),
+             ("high", "high", "spectrogramgenai_tpu/ops/mel_kernel.py:147"),
+             (False, "fast", "spectrogramgenai_tpu/ops/mel_kernel.py:94"))
+# (bf16 products of the DFT, of the filterbank product) per rung
+MEL_PRODUCTS = {"exact": (1, 1), "high": (3, 3), "fast": (1, 1)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -77,8 +109,9 @@ def cuda_ms(fn, runs: int = 10, warmup: int = 3, inner: int = 1) -> float:
     return statistics.median(times)
 
 
-def png_pixels(png: bytes) -> tuple[int, int, int]:
-    """(height, width, channels) of an 8-bit RGB PNG, after inflating its pixel data."""
+def png_rgb(png: bytes) -> np.ndarray:
+    """The (height, width, 3) pixels of an 8-bit RGB PNG with no row filters
+    (the port's encoder), after checking its header and inflated size."""
     check(png.startswith(b"\x89PNG\r\n\x1a\n"), "PNG signature")
     pos, idat, ihdr = 8, b"", None
     while pos < len(png):
@@ -93,7 +126,9 @@ def png_pixels(png: bytes) -> tuple[int, int, int]:
     w, h = ihdr[0], ihdr[1]
     raw = zlib.decompress(idat)
     check(len(raw) == h * (1 + 3 * w), "inflated PNG size")
-    return h, w, 3
+    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
+    check(not rows[:, 0].any(), "unfiltered PNG rows")
+    return rows[:, 1:].reshape(h, w, 3)
 
 
 def exact64(q, k, v):
@@ -109,11 +144,12 @@ def phase_kernel(torch, attn) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     ref, fused = attn.attention_reference, attn.fused_attention
+    sdpa = torch.nn.functional.scaled_dot_product_attention  # the yardstick; the port never calls it
 
     def rand(n, d, dtype):
         return [torch.randn(1, BH, n, d, device="cuda", generator=gen).to(dtype) for _ in range(3)]
 
-    max_err, ms, plain_ms = 0.0, 0.0, 0.0
+    max_err, ms, plain_ms, library_ms, flops_ms, bytes_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     for name, n, d in SA_SITES:
         q, k, v = rand(n, d, torch.float32)
         err32 = (fused(q, k, v) - ref(q, k, v)).abs().max().item()
@@ -149,12 +185,23 @@ def phase_kernel(torch, attn) -> dict:
         t_p = cuda_ms(lambda: ref(qb, kb, vb))
         t_k32 = cuda_ms(lambda: fused(q, k, v))
         t_p32 = cuda_ms(lambda: ref(q, k, v))
+        t_lib = cuda_ms(lambda: sdpa(qb, kb, vb))
+        # least time for the bf16 work: q·kᵀ and p·v on the tensor cores, or
+        # q, k, v read and o written once; the exponentials (MUFU, 16 per
+        # clock per SM) are a third bound, printed beside
+        flops, nbytes, exps = 4 * BH * n * n * d, 4 * BH * n * d * 2, BH * n * n
+        t_flops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
         log(f"kernel {name} (B·H={BH}, N={n}, d={d}): err f32 {err32:.3g} bf16 {err16:.3g} "
             f"large-logit vs f64: f32 {errl:.3g} (plain f32 {errl_plain:.3g}), bf16(rel) {errlb:.3g} | "
-            f"bf16 kernel {t_k:.3f} ms, plain {t_p:.3f} ms | f32 kernel {t_k32:.3f} ms, plain {t_p32:.3f} ms")
+            f"bf16 kernel {t_k:.3f} ms, plain {t_p:.3f} ms, scaled_dot_product_attention {t_lib:.3f} ms | "
+            f"f32 kernel {t_k32:.3f} ms, plain {t_p32:.3f} ms | bound {max(t_flops, t_bytes):.4f} ms "
+            f"(tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}; {exps:.3g} exponentials)")
         max_err = max(max_err, err32, err16)
         ms += t_k
         plain_ms += t_p
+        library_ms += t_lib
+        flops_ms += t_flops
+        bytes_ms += t_bytes
         del q, k, v, qb, kb, vb, out, ql, ks, vs, big, exact, qlb, ksb, vsb, want
         torch.cuda.empty_cache()
 
@@ -165,9 +212,211 @@ def phase_kernel(torch, attn) -> dict:
             err = (fused(q, k, v).float() - ref(q.float(), k.float(), v.float())).abs().max().item()
             check(err <= tol, f"d={d} {dtype} max abs err {err} <= {tol}")
     torch.cuda.synchronize()
-    log(f"kernel: head dims 2, 4, 8, 64 match in f32 and bf16; "
-        f"three-site sum bf16 kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms")
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+    bound_ms = max(flops_ms, bytes_ms)
+    log(f"kernel: head dims 2, 4, 8, 64 match in f32 and bf16; three-site sum bf16 kernel {ms:.3f} ms, "
+        f"plain {plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes", "library_ms": library_ms}
+
+
+def phase_mel(torch) -> dict[str, dict]:
+    """Each rung's kernel against its plain version and the float64 oracle; times at batch 64."""
+    from spectrogramgenai_tpu_torch.audio.mel import hann_window
+    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, constants, reference_logmel_np
+    from spectrogramgenai_tpu_torch.ops import mel_kernel as mk
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_mel_helpers import MEL_TOL, RUNG_BOUNDS, mel_rel_err, stress_audio
+
+    cfg, cfg48 = SpectrogramConfig(), SpectrogramConfig(sample_rate=48000)
+    sets = [("22,050 Hz × 64", cfg, stress_audio(cfg, 64)),
+            ("48 kHz × 4", cfg48, stress_audio(cfg48, 4, seed=1)),
+            ("100,001 samples × 5", cfg, np.ascontiguousarray(stress_audio(cfg, 5, seed=2)[:, :100_001]))]
+    oracles = [np.stack([reference_logmel_np(c, set_cfg) for c in clips]) for _, set_cfg, clips in sets]
+    audio64 = torch.from_numpy(sets[0][2]).cuda()
+    b, n = audio64.shape
+    t_frames = cfg.frames_for(n)
+
+    # the yardstick: one cuFFT STFT (zero centre padding, periodic Hann) and the
+    # filterbank matmul, float32 with TF32 off; the port never calls it
+    window = torch.from_numpy(hann_window(cfg.n_fft)).cuda()
+    fb_t = torch.from_numpy(np.ascontiguousarray(constants(cfg)[1].T)).cuda()
+
+    def library():
+        spec = torch.stft(audio64, cfg.n_fft, cfg.hop_length, window=window, center=True, pad_mode="constant",
+                          return_complex=True)
+        return (spec.abs() ** 2).transpose(1, 2) @ fb_t
+
+    lib_out = library()
+    exact_plain = mk.mel_power_reference(audio64, cfg, True)
+    lib_rel = ((lib_out - exact_plain).abs().max() / exact_plain.abs().max()).item()
+    check(lib_out.shape == exact_plain.shape and lib_rel <= 1e-4, f"torch.stft yardstick agrees ({lib_rel:.3g})")
+    t_lib = cuda_ms(library)
+    log(f"mel: torch.stft + filterbank (batch {b}, f32): {t_lib:.3f} ms, rel. diff to the exact plain version "
+        f"{lib_rel:.3g}")
+    del lib_out, exact_plain
+
+    out, failed = {}, []
+    for exact, rung, replaces in MEL_RUNGS:
+        typical_bound, adversarial_bound = RUNG_BOUNDS[exact]
+        max_abs, max_rel, typical, adversarial = 0.0, 0.0, 0.0, 0.0
+        for (name, set_cfg, clips), oracle in zip(sets, oracles):
+            audio = torch.from_numpy(clips).cuda()
+            got = mk.fused_mel_power(audio, set_cfg, exact)
+            want = mk.mel_power_reference(audio, set_cfg, exact)
+            torch.cuda.synchronize()
+            check(got.shape == (len(clips), set_cfg.frames_for(clips.shape[1]), set_cfg.n_mels),
+                  f"mel {rung} {name} shape")
+            diff, rel = (got - want).abs().max().item(), mel_rel_err(got, want)
+            err = np.abs(mk.fused_logmel(audio, set_cfg, exact).cpu().numpy() - oracle).max(axis=(1, 2))
+            log(f"mel {rung} {name}: kernel vs plain max abs {diff:.4g}, per element {rel:.4g} "
+                f"(tolerance {MEL_TOL[rung]}); vs float64 oracle max {float(err.max())!r} dB"
+                + (f", kind 3 {float(err[3::4].max())!r} dB" if len(err) >= 4 else ""))
+            # every reading is printed before any check of the rung fails
+            if rel > MEL_TOL[rung]:
+                failed.append(f"mel {rung} {name}: kernel vs plain per element {rel:.4g} <= {MEL_TOL[rung]}")
+            if err.max() > adversarial_bound:
+                failed.append(f"mel {rung} {name}: adversarial {err.max()!r} dB <= {adversarial_bound}")
+            if set_cfg is cfg and len(clips) == 64:  # typical: kind 3 of the JAX tool's own set
+                typical = float(err[3::4].max())
+                log(f"mel {rung} {name}: kind-3 clips, per-clip max dB error, sorted: "
+                    f"{' '.join(f'{e:.4g}' for e in np.sort(err[3::4]))}")
+                if typical > typical_bound:
+                    failed.append(f"mel {rung} {name}: typical {typical!r} dB <= {typical_bound}")
+            max_abs, max_rel = max(max_abs, diff), max(max_rel, rel)
+            adversarial = max(adversarial, float(err.max()))
+
+        t_k = cuda_ms(lambda: mk.fused_mel_power(audio64, cfg, exact))
+        t_p = cuda_ms(lambda: mk.mel_power_reference(audio64, cfg, exact))
+        # least time: the products the kernel issues, or its inputs read and output written once
+        w, fb, _ = mk._kernel_constants(cfg, audio64.device, rung)
+        dft_p, mel_p = MEL_PRODUCTS[rung]
+        flops = 4 * b * t_frames * cfg.n_fft * cfg.n_bins * dft_p + 2 * b * t_frames * cfg.n_bins * cfg.n_mels * mel_p
+        nbytes = audio64.nbytes + w.nbytes + fb.nbytes + 4 * b * t_frames * cfg.n_mels
+        t_flops = flops / (H100_F32_FLOPS if rung == "exact" else H100_BF16_FLOPS) * 1e3
+        t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+        log(f"mel {rung}: batch {b} kernel {t_k:.3f} ms, plain {t_p:.3f} ms, torch.stft {t_lib:.3f} ms; "
+            f"bound {max(t_flops, t_bytes):.4f} ms (flops {flops:.4g} → {t_flops:.4f} ms, "
+            f"bytes {nbytes:.4g} → {t_bytes:.4f} ms); dB error typical {typical:.4g}, adversarial {adversarial:.4g}")
+        out[rung] = {"replaces": replaces, "max_abs_err": max_abs, "max_rel_err": max_rel,
+                     "max_err_db": adversarial, "typical_err_db": typical, "ms": t_k, "plain_ms": t_p,
+                     "bound_ms": max(t_flops, t_bytes), "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+                     "library_ms": t_lib}
+    check(not failed, "; ".join(failed))
+    del audio64
+    torch.cuda.empty_cache()
+    return out
+
+
+def viridis_index(rgb: np.ndarray) -> np.ndarray:
+    """viridis RGB pixels → LUT indices (the lowest index where two share a colour)."""
+    from spectrogramgenai_tpu_torch.audio.export import VIRIDIS_LUT
+
+    lut = VIRIDIS_LUT.astype(np.int64)
+    keys = (lut[:, 0] << 16) | (lut[:, 1] << 8) | lut[:, 2]
+    order = np.argsort(keys, kind="stable")
+    px = rgb.astype(np.int64)
+    pos = np.searchsorted(keys[order], (px[..., 0] << 16) | (px[..., 1] << 8) | px[..., 2])
+    check(bool((keys[order][np.minimum(pos, 255)] == ((px[..., 0] << 16) | (px[..., 1] << 8) | px[..., 2])).all()),
+          "PNG pixels are viridis colours")
+    return order[pos]
+
+
+def make_corpus(work: str) -> tuple[str, str, list[dict], int]:
+    """Synthetic field recordings: 32 of 60 s at 22,050 Hz and 2 at 48 kHz,
+    int16, each with 8 detections of 3 s (bird-like chirps over wind noise).
+    Returns the manifest, the WAV folder, the rows and the number of batches
+    of 64 that gen_specs makes of them (one sample rate per batch)."""
+    from scipy.io import wavfile
+
+    wav_dir = os.path.join(work, "wavs")
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(0)
+    rows, per_rate = [], {}
+    for i, sr in enumerate([22050] * 32 + [48000] * 2):
+        t = np.arange(60 * sr) / sr
+        x = 0.02 * rng.standard_normal(len(t))
+        for k in range(8):
+            begin = 7 * k + int(rng.integers(0, 3))
+            f0, f1 = rng.uniform(1500, 4000), rng.uniform(4000, 9000)
+            seg = (t >= begin) & (t < begin + 3)
+            ts = t[seg] - begin
+            x[seg] += 0.4 * np.sin(2 * np.pi * (f0 * ts + (f1 - f0) * ts**2 / 6)) * np.sin(np.pi * ts / 3) ** 2
+            rows.append({"file_name": f"rec{i:02d}.wav", "begin_time": begin, "end_time": begin + 3,
+                         "common_name": f"bird{i % 5}"})
+            per_rate[sr] = per_rate.get(sr, 0) + 1
+        wavfile.write(os.path.join(wav_dir, f"rec{i:02d}.wav"), sr, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+    manifest = os.path.join(work, "manifest.csv")
+    with open(manifest, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return manifest, wav_dir, rows, sum(-(-count // 64) for count in per_rate.values())
+
+
+def phase_gen_specs(torch, work: str) -> dict[str, int]:
+    """cli.gen_specs.run on the card once per rung; returns each rung's launches."""
+    from spectrogramgenai_tpu_torch.audio.export import spec_png_name
+    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, reference_logmel_np
+    from spectrogramgenai_tpu_torch.audio.wavio import load_wav, slice_clip
+    from spectrogramgenai_tpu_torch.cli import gen_specs
+    from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_mel_power
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_mel_helpers import RUNG_BOUNDS
+
+    t0 = time.perf_counter()
+    manifest, wav_dir, rows, batches = make_corpus(work)
+    names = [spec_png_name(r["file_name"], r["begin_time"]) for r in rows]
+    log(f"gen_specs: corpus of {len(rows)} detections in {len(set(r['file_name'] for r in rows))} recordings "
+        f"made in {time.perf_counter() - t0:.2f} s; {batches} batches of ≤ 64 by sample rate")
+
+    launches, indices = {}, {}
+    for exact, rung, _ in MEL_RUNGS:
+        out_dir = os.path.join(work, f"images_{rung}")
+        printed = io.StringIO()
+        fused_mel_power.launches = 0  # the main path starts here
+        t_run = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            n_done = gen_specs.run(manifest, wav_dir, out_dir, batch_size=64, save_npy=True, exact=exact,
+                                   device="cuda")
+        wall = time.perf_counter() - t_run
+        launches[rung] = fused_mel_power.launches  # the main path ends here
+        for line in printed.getvalue().splitlines():
+            log(f"gen_specs {rung}: {line}")
+        split = re.search(r"decode ([\d.]+) s, mel kernel ([\d.]+) s, dB glue ([\d.]+) s \(CUDA events, "
+                          r"(\d+) batches\), encode ([\d.]+) s", printed.getvalue())
+        check(split is not None, "gen_specs printed its time split")
+        check(n_done == len(rows), f"gen_specs {rung} wrote {n_done} of {len(rows)} spectrograms")
+        check(int(split.group(4)) == batches, f"gen_specs {rung} flushed {split.group(4)} batches, {batches} expected")
+        check(launches[rung] >= batches, f"gen_specs {rung}: mel kernel launches {launches[rung]} >= {batches}")
+        rgb = []
+        for name in names:
+            with open(os.path.join(out_dir, name), "rb") as f:
+                rgb.append(png_rgb(f.read()))
+            check(rgb[-1].shape == (256, 256, 3), f"{name} inflates to 256×256×3")
+        indices[rung] = np.stack([viridis_index(x) for x in rgb])
+        log(f"gen_specs {rung}: {n_done} specs in {wall:.3f} s wall → {n_done / wall:.1f} specs/s end to end; "
+            f"decode {split.group(1)} s, mel kernel {split.group(2)} s, dB glue {split.group(3)} s, "
+            f"encode {split.group(5)} s; "
+            f"{launches[rung]} launches")
+
+    # the exact rung's arrays against the float64 oracle
+    worst = 0.0
+    for row, name in zip(rows, names):
+        wav, sr = load_wav(os.path.join(wav_dir, row["file_name"]))
+        want = reference_logmel_np(slice_clip(wav, sr, row["begin_time"], row["end_time"]),
+                                   SpectrogramConfig(sample_rate=sr))
+        got = np.load(os.path.join(work, "images_exact", name.replace(".png", ".npy")))
+        worst = max(worst, float(np.abs(got - want).max()))
+    check(worst <= RUNG_BOUNDS[True][0],
+          f"gen_specs exact .npy vs oracle {worst:.3g} dB <= {RUNG_BOUNDS[True][0]}")
+    high_levels = int(np.abs(indices["exact"] - indices["high"]).max())
+    fast_levels = int(np.abs(indices["exact"] - indices["fast"]).max())
+    check(high_levels <= 2, f"exact and high PNGs within 2 levels ({high_levels})")
+    log(f"gen_specs: exact .npy vs float64 oracle max {worst:.3g} dB; PNG levels exact vs high ≤ {high_levels}, "
+        f"exact vs fast ≤ {fast_levels}")
+    return launches
 
 
 def phase_serve(torch, work: str) -> int:
@@ -269,7 +518,7 @@ def phase_serve(torch, work: str) -> int:
         check(status == 200, f"request {p} → {status}")
         check(len(body["images"]) == p["count"], f"request {p} → {len(body['images'])} images")
         for img in body["images"]:
-            check(png_pixels(base64.b64decode(img)) == (256, 256, 3), "PNG inflates to 256×256×3")
+            check(png_rgb(base64.b64decode(img)).shape == (256, 256, 3), "PNG inflates to 256×256×3")
     check(health[0] == 200 and health[1]["ok"] and health[1]["backend"] == "cuda", f"healthz {health}")
     n_images = sum(p["count"] for p in REQUESTS)
     batches = stats["batches"] - warm["batches"]
@@ -318,23 +567,29 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.load("attention_fwd")
-    log(f"build: attention_fwd built and loaded in {time.perf_counter() - t0:.2f} s")
-    for line in _build.build_log("attention_fwd").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+    _build.build(KERNEL_SOURCES)  # one nvcc per source, started together
+    log(f"build: {', '.join(KERNEL_SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
+    for name in KERNEL_SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "entry function" in line:
+                log(f"build {name}: {line.strip()}")
 
     kern = phase_kernel(torch, attn)
+    mel = phase_mel(torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         launches = phase_serve(torch, work)
         os.chdir(REPO)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_specs_") as work:
+        mel_launches = phase_gen_specs(torch, work)
 
-    log(json.dumps({"kernels": [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "spectrogramgenai_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "spectrogramgenai_tpu/ops/attention.py:83",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"]}]}))
+    kernels = [{"name": "attention_fwd", "route": "cuda",
+                "source": "spectrogramgenai_tpu_torch/csrc/attention_fwd.cu",
+                "replaces": "spectrogramgenai_tpu/ops/attention.py:83", "launches": launches, **kern}]
+    for _, rung, _ in MEL_RUNGS:
+        kernels.append({"name": f"mel_power_{rung}", "route": "cuda",
+                        "source": "spectrogramgenai_tpu_torch/csrc/mel_power.cu",
+                        "launches": mel_launches[rung], **mel[rung]})
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))
     return 0

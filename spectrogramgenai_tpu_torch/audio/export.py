@@ -1,13 +1,14 @@
-"""Generated-image export: viridis colormap and PNG encoding.
+"""Spectrogram and generated-image export: viridis colormap and PNG encoding.
 
-Counterpart of the generated-sample half of ``spectrogramgenai_tpu/audio/export.py``
-without PIL or matplotlib: the viridis table is a constant here, and the PNG
-encoder is the standard library's ``zlib`` and ``struct``. Output is 8-bit
-RGB, pixel-equal to the JAX package's viridis PNGs.
+Counterpart of ``spectrogramgenai_tpu/audio/export.py`` without PIL or
+matplotlib: the viridis table is a constant here, and the PNG encoder is the
+standard library's ``zlib`` and ``struct``. Output is 8-bit RGB,
+pixel-equal to the JAX package's viridis PNGs (the bytes may differ).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import os
 import struct
 import zlib
@@ -37,6 +38,7 @@ _VIRIDIS_HEX = (
 VIRIDIS_LUT = np.frombuffer(bytes.fromhex(_VIRIDIS_HEX), dtype=np.uint8).reshape(256, 3)
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+ENCODE_THREADS = 8  # PNG encodes of a spectrogram batch in flight (the JAX package's default)
 
 
 def _chunk(kind: bytes, data: bytes) -> bytes:
@@ -69,9 +71,52 @@ def generated_png_bytes(imgs_uint8: np.ndarray) -> list[bytes]:
     return [encode_png_rgb(rgb) for rgb in viridis_rgb(imgs_uint8)]
 
 
+def _write_png(rgb: np.ndarray, path: str) -> None:
+    data = encode_png_rgb(rgb)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
 def save_generated_pngs(imgs_uint8: np.ndarray, paths: list[str]) -> None:
     """Write each uint8 sample of (n, H, W[, 1]) as a viridis PNG to its path."""
-    for png, path in zip(generated_png_bytes(imgs_uint8), paths, strict=True):
-        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        with open(path, "wb") as f:
-            f.write(png)
+    for rgb, path in zip(viridis_rgb(imgs_uint8), paths, strict=True):
+        _write_png(rgb, path)
+
+
+def spec_png_name(file_name: str, begin_time: float) -> str:
+    """The reference's spectrogram file key, ``{file}_{begin}_{begin}.png``."""
+    b = int(begin_time)
+    return f"{file_name}_{b}_{b}.png"
+
+
+def spectrogram_rgb(specs: np.ndarray) -> np.ndarray:
+    """(n, H, W) float spectrograms → (n, H, W, 3) viridis uint8, each image
+    scaled by its own min and max (matplotlib ``plt.imsave``), LUT index
+    ``clip(int(x·256), 0, 255)``."""
+    specs = np.asarray(specs)
+    lo = specs.min(axis=(1, 2), keepdims=True)
+    hi = specs.max(axis=(1, 2), keepdims=True)
+    rng = np.where(hi > lo, hi - lo, 1.0)
+    img01 = np.where(hi > lo, (specs - lo) / rng, 0.0)
+    return VIRIDIS_LUT[np.clip((img01 * 256.0).astype(np.int32), 0, 255)]
+
+
+def save_spectrogram_pngs(specs: np.ndarray, paths: list[str]) -> None:
+    """Write each (H, W) spectrogram of ``specs`` as a viridis PNG to its path.
+
+    The colormap is one vectorised pass over the batch; the zlib encodes and
+    writes run in a thread pool (``zlib.compress`` releases the GIL)."""
+    rgb = spectrogram_rgb(specs)
+    if len(rgb) != len(paths):
+        raise ValueError(f"{len(rgb)} spectrograms for {len(paths)} paths")
+    with concurrent.futures.ThreadPoolExecutor(max_workers=ENCODE_THREADS) as pool:
+        futures = [pool.submit(_write_png, im, p) for im, p in zip(rgb, paths)]
+        for fut in futures:
+            fut.result()
+
+
+def save_spectrogram_npy(spec: np.ndarray, path: str) -> None:
+    """The exact float32 spectrogram beside its PNG."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.save(path, np.asarray(spec, np.float32))

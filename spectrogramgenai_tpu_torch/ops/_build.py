@@ -56,37 +56,57 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _compile(name: str, out: Path) -> None:
+def _compile(names: list[str]) -> None:
+    """Compile the sources, one nvcc each, all started together."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # build under a temporary name, then rename: two processes building the
-    # same library at once never load a half-written file
-    fd, tmp = tempfile.mkstemp(prefix=out.name + ".", suffix=".tmp", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    nvcc, jobs = find_nvcc(), []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)
+        for name in names:
+            # build under a temporary name, then rename: two processes building
+            # the same library at once never load a half-written file
+            out = library_path(name)
+            fd, tmp = tempfile.mkstemp(prefix=out.name + ".", suffix=".tmp", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+            jobs.append((name, out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                          stderr=subprocess.STDOUT, text=True)))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            report = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{report}")
+                continue
+            out.with_suffix(".log").write_text(report)
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
+def build(names) -> None:
+    """Compile those of ``csrc/<name>.cu`` that are not built yet, in parallel, and load them."""
+    with _lock:
+        names = [n for n in names if n not in _loaded]
+        missing = [n for n in names if not library_path(n).exists()]
+        if missing:
+            _compile(missing)
+        for name in names:
+            _loaded[name] = ctypes.CDLL(str(library_path(name)))
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, compiling it if needed."""
-    with _lock:
-        lib = _loaded.get(name)
-        if lib is not None:
-            return lib
-        path = library_path(name)
-        if not path.exists():
-            _compile(name, path)
-        lib = ctypes.CDLL(str(path))
-        _loaded[name] = lib
-        return lib
+    lib = _loaded.get(name)  # every launch comes here: no file system work once loaded
+    if lib is None:
+        build([name])
+        lib = _loaded[name]
+    return lib
 
 
 def build_log(name: str) -> str:

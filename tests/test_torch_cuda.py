@@ -1,6 +1,6 @@
-"""The port's CUDA attention kernel against its plain version, on the card.
+"""The port's CUDA kernels (attention, mel power) against their plain versions, on the card.
 
-The kernel has no CPU mode, so every test here is marked ``gpu`` and skips
+The kernels have no CPU mode, so every test here is marked ``gpu`` and skips
 without a CUDA device. On a machine with an NVIDIA Hopper card and nvcc:
 
     python -m pytest --noconftest -m gpu tests/test_torch_cuda.py -q
@@ -8,15 +8,27 @@ without a CUDA device. On a machine with an NVIDIA Hopper card and nvcc:
 
 import math
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from spectrogramgenai_tpu_torch.audio.spectrogram import (  # noqa: E402
+    SpectrogramConfig,
+    reference_logmel_np,
+)
 from spectrogramgenai_tpu_torch.models.unet import ConditionalUNet  # noqa: E402
 from spectrogramgenai_tpu_torch.ops.attention import (  # noqa: E402
     attention_reference,
     fused_attention,
 )
+from spectrogramgenai_tpu_torch.ops.mel_kernel import (  # noqa: E402
+    fused_logmel,
+    fused_mel_power,
+    mel_power_reference,
+    rung_name,
+)
+from torch_mel_helpers import MEL_TOL, RUNG_BOUNDS, mel_rel_err, stress_audio  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -104,3 +116,44 @@ def test_unet_kernel_route_matches_plain_route(gen):
     assert fused_attention.launches == before + 3
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4  # f32, TF32 off
+
+
+
+@pytest.mark.parametrize("exact", [True, "high", False])
+@pytest.mark.parametrize("sr, batch, n", [(22050, 1, 132300), (22050, 64, 132300), (48000, 4, 288000),
+                                          (22050, 5, 100001)])
+def test_mel_kernel_matches_plain_version_and_oracle(gen, exact, sr, batch, n):
+    cfg = SpectrogramConfig(sample_rate=sr)
+    clips = stress_audio(cfg, batch)[:, :n]  # the JAX tool's own clips (seed 0)
+    audio = torch.from_numpy(np.ascontiguousarray(clips)).cuda()
+    before = fused_mel_power.launches
+    got = fused_mel_power(audio, cfg, exact)
+    torch.cuda.synchronize()
+    assert fused_mel_power.launches == before + 1
+    assert got.shape == (batch, cfg.frames_for(n), cfg.n_mels) and got.dtype == torch.float32
+    want = mel_power_reference(audio, cfg, exact)
+    assert mel_rel_err(got, want) <= MEL_TOL[rung_name(exact)]  # per element, down to the dB floor
+
+    db = fused_logmel(audio, cfg, exact).cpu().numpy()
+    err = np.abs(db - np.stack([reference_logmel_np(c, cfg) for c in clips])).max(axis=(1, 2))
+    typical, adversarial = RUNG_BOUNDS[exact]
+    assert err.max() <= adversarial, err
+    if batch == 64:  # typical: kind 3 of the JAX tool's own set
+        assert err[3::4].max() <= typical, err
+
+
+def test_mel_wrapper_rejects_what_the_kernel_does_not_take(gen):
+    cfg = SpectrogramConfig()
+    audio = torch.randn(2, 30000, device="cuda", generator=gen)
+    with pytest.raises(TypeError, match="float32"):
+        fused_mel_power(audio.bfloat16(), cfg)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_mel_power(torch.randn(30000, 2, device="cuda", generator=gen).T, cfg)
+    with pytest.raises(ValueError, match="device"):
+        fused_mel_power(torch.zeros(2, 30000, device="meta"), cfg)
+    with pytest.raises(ValueError, match="hop"):
+        fused_mel_power(audio, SpectrogramConfig(hop_length=100))
+    before = fused_mel_power.launches
+    fused_mel_power(audio, cfg)
+    fused_mel_power(audio, cfg, exact=False)
+    assert fused_mel_power.launches == before + 2

@@ -303,4 +303,37 @@ print(len(mods))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 30
+
+
+def test_kernel_build_runs_one_compiler_per_source(tmp_path, monkeypatch):
+    from spectrogramgenai_tpu_torch.ops import _build
+
+    # a stand-in compiler: writes its -o file and a report, and fails on bad.cu
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    nvcc.parent.mkdir(parents=True)
+    nvcc.write_text('#!/bin/sh\nout=""; src=""\nwhile [ $# -gt 0 ]; do\n'
+                    '  case "$1" in -o) out="$2"; shift;; *.cu) src="$1";; esac; shift\ndone\n'
+                    'case "$src" in *bad.cu) echo "bad.cu(1): error"; exit 1;; esac\n'
+                    'echo "ptxas info    : Used 40 registers"; echo built > "$out"\n')
+    nvcc.chmod(0o755)
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("one", "two", "bad"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+
+    _build._compile(["one", "two"])
+    for name in ("one", "two"):
+        assert _build.library_path(name).read_text() == "built\n"
+        assert "40 registers" in _build.build_log(name)
+    with pytest.raises(RuntimeError, match="bad.cu"):
+        _build._compile(["bad", "one"])
+    assert not _build.library_path("bad").exists()
+    assert sorted(p.name for p in (tmp_path / "_build").iterdir() if p.suffix == ".tmp") == []
+    # an edited source is another library
+    before = _build.library_path("one")
+    (csrc / "one.cu").write_text("// one, edited\n")
+    assert _build.library_path("one") != before
