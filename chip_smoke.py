@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path and mel front end once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, mel front end and latent-DDPM training once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -7,9 +7,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
 
   1. device   — CUDA must be available; prints the card's name and power limit
                 (nvidia-smi).
-  2. build    — compiles csrc/attention_fwd.cu and csrc/mel_power.cu with nvcc
-                from this checkout, one nvcc per source, started together;
-                prints each kernel's registers and spills.
+  2. build    — compiles csrc/attention_fwd.cu, csrc/attention_bwd.cu and
+                csrc/mel_power.cu with nvcc from this checkout, one nvcc per
+                source, started together; prints each kernel's registers and
+                spills.
   3. kernel   — the attention kernel against its plain PyTorch version at the
                 UNet's three fused sites (B·H = 216 = serve batch 27 × CFG 2
                 × 4 heads): f32 ≤ 1e-4 with TF32 off, bf16 ≤ 1e-2 against the
@@ -36,6 +37,27 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 exact .npy arrays at the exact rung's bound against the oracle,
                 exact and high PNGs within 2 levels, a kernel launch per batch;
                 specs/s and the decode / mel kernel / dB glue / encode split.
+  7. attention_bwd — the backward kernel against its plain version and both
+                against float64, per row (dQ by query row, dK and dV by key
+                row, each normalised by its own norm), at the training sites
+                (B·H = 128 = batch 32 × 4 heads): f32 with TF32 off, bf16
+                against the f64 of the same bf16 inputs, a large-logit head
+                and an underflow row; kernel, plain and
+                scaled_dot_product_attention backward (fwd+bwd − fwd) times
+                and the bound.
+  8. train    — a 27-class corpus (10 train + 6 val clips per class) through
+                cli.gen_specs.run (exact rung) into datasets/{train,val}/;
+                seeded random full-size VQ-VAE saved as a checkpoint;
+                cli.train_ddpm.run with the DDPMConfig defaults (UNet width
+                1.0, 64×64×4 latent, bf16, latent cache, batch 32) for 2
+                epochs of 8 steps, then again with 3 epochs, resuming; every
+                loss finite, params changed, both attention kernels launched
+                at 3 sites per step, the checkpoint served through
+                cli.common.load_task (one dpmpp-20 batch). One full-width step
+                through the kernels against the plain attention (same t,
+                noise, keep); images/s, s/step, a step's split (CUDA events),
+                the attention share of a step's device time (torch.profiler),
+                peak memory and the latent-cache encode time.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when CUDA
@@ -70,7 +92,21 @@ NUM_STEPS = 20
 SA_SITES = (("sa_0", 1024, 32), ("sa_4", 1024, 16), ("sa_5", 4096, 16))  # name, N, head dim
 BH = SERVE_BATCH * 2 * 4
 REQUESTS = ({"label": "class00", "count": 1}, {"label": 5, "count": 4}, {"label": 26, "count": 27})
-KERNEL_SOURCES = ("attention_fwd", "mel_power")
+KERNEL_SOURCES = ("attention_fwd", "attention_bwd", "mel_power")
+TRAIN_BATCH = 32
+TRAIN_BH = TRAIN_BATCH * 4  # no CFG doubling in training
+TRAIN_CLASSES, TRAIN_PER_CLASS, VAL_PER_CLASS = 27, 10, 6  # docs/EXPERIMENT.md's split sizes
+# the backward kernel against float64, per row: each tolerance sits just
+# above the plain version's own reading at these shapes (PERF.md §6, PR 3)
+# (plain readings, NVIDIA H100: f32 ≤ 4.4e-6, bf16 ≤ 3.24e-3, the output rounding)
+BWD_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+# logits up to ~150 leave ~|s|·2⁻²⁴·√d of f32 rounding in the logits
+# themselves (plain readings: f32 ≤ 3.64e-4, bf16 ≤ 3.24e-3)
+LARGE_LOGIT_TOL = {"float32": 5e-4, "bfloat16": 5e-3}
+# one full-width bf16 train step, kernels against the plain attention route:
+# bf16 rounding at other places in the two routes (readings on the card: loss
+# 9.1e-5 relative, per-tensor gradient 6.3e-3 at most, median 2.0e-3)
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 2e-2
 # H100 SXM peaks (NVIDIA's data sheet): memory rate, bf16 tensor cores, and the
 # scalar float32 rate, which is also the float64 tensor-core rate
 H100_BYTES_PER_S, H100_BF16_FLOPS, H100_F32_FLOPS = 3.35e12, 989e12, 67e12
@@ -550,6 +586,360 @@ def phase_serve(torch, work: str) -> int:
     return launches
 
 
+def row_rel_err(got, want) -> float:
+    """max over rows of |got − want| / |want|, norms over the head dim."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+def exact_bwd64(q, k, v, do):
+    """(dq, dk, dv) of softmax(q·kᵀ/√d)·v computed in float64."""
+    import torch
+
+    q, k, v, do = q.double(), k.double(), v.double(), do.double()
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(q @ k.mT * scale, dim=-1)
+    dp = do @ v.mT
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return ds @ k * scale, ds.mT @ q * scale, p.mT @ do
+
+
+def phase_attention_bwd(torch, attn) -> dict:
+    """The backward kernel at the training sites against its plain version and float64."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    ref, bwd = attn.attention_bwd_reference, attn.fused_attention_bwd
+    sdpa = torch.nn.functional.scaled_dot_product_attention  # the yardstick; the port never calls it
+    heads64 = 16  # heads held to float64 (its (N, N) matrices at N = 4096 take 2 GB each)
+
+    failed, worst = [], {"float32": 0.0, "bfloat16": 0.0}
+    ms = plain_ms = library_ms = flops_ms = bytes_ms = 0.0
+    for name, n, d in SA_SITES:
+        q, k, v, do = (torch.randn(1, TRAIN_BH, n, d, device="cuda", generator=gen) for _ in range(4))
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            args = [t.to(dtype) for t in (q, k, v, do)]
+            got = bwd(*args)
+            want = ref(*args)
+            torch.cuda.synchronize()
+            exact = exact_bwd64(*(t[:, :heads64] for t in args))
+            errs = []
+            for label, g, w, e in zip(("dq", "dk", "dv"), got, want, exact):
+                check(g.dtype == dtype and g.shape == q.shape, f"{name} {key} {label} dtype and shape")
+                check(bool(torch.isfinite(g).all()), f"{name} {key} {label} finite")
+                k_err, p_err = row_rel_err(g[:, :heads64], e), row_rel_err(w[:, :heads64], e)
+                kp_err = row_rel_err(g, w)
+                errs.append(f"{label} kernel {k_err:.3g} plain {p_err:.3g} kernel-vs-plain {kp_err:.3g}")
+                worst[key] = max(worst[key], k_err)
+                if k_err > BWD_TOL[key]:
+                    failed.append(f"{name} {key} {label}: kernel vs float64 per row {k_err:.3g} <= {BWD_TOL[key]}")
+            log(f"attention_bwd {name} (B·H={TRAIN_BH}, N={n}, d={d}) {key}, per-row error vs float64: "
+                + "; ".join(errs))
+            del got, want, exact
+
+        # a large-logit head (logits up to ~165: past exp's f32 range) and an underflow row
+        ql, kl, vl, dol = (t[:, :4].clone() for t in (q, k, v, do))
+        kl[..., 0] += 200.0
+        for dtype in (torch.float32, torch.bfloat16):
+            key = str(dtype).split(".")[-1]
+            args = [t.to(dtype) for t in (ql, kl, vl, dol)]
+            for label, g, w, e in zip(("dq", "dk", "dv"), bwd(*args), ref(*args), exact_bwd64(*args)):
+                k_err, p_err = row_rel_err(g, e), row_rel_err(w, e)
+                log(f"attention_bwd {name} large logits {key} {label}: kernel {k_err:.3g}, plain {p_err:.3g}")
+                check(bool(torch.isfinite(g).all()), f"{name} large-logit {key} {label} finite")
+                if k_err > LARGE_LOGIT_TOL[key]:
+                    failed.append(f"{name} large-logit {key} {label}: {k_err:.3g} <= {LARGE_LOGIT_TOL[key]}")
+        # every logit −10⁴·√d: an unshifted exp gives 0/0. P is uniform and dP
+        # constant along the row, so dS, dQ and dK are 0 up to the rounding of
+        # dP − c (a sum over N alike terms) carried by |k| = |q| = 100: 1.5e-3
+        # at N = 4096, where a dS that did not cancel would give ~50. dV is
+        # the mean of dO
+        qu = torch.full((1, 1, n, d), 100.0, device="cuda")
+        ku = torch.full((1, 1, n, d), -100.0, device="cuda")
+        dou = dol[:, :1].contiguous()
+        dq, dk, dv = bwd(qu, ku, torch.ones_like(qu), dou)
+        check(all(bool(torch.isfinite(t).all()) for t in (dq, dk, dv)), f"{name} underflow row: no NaN")
+        u_dq, u_dk = dq.abs().max().item(), dk.abs().max().item()
+        u_dv = (dv - dou.mean(dim=2, keepdim=True)).abs().max().item()
+        log(f"attention_bwd {name} underflow rows (f32): |dQ| {u_dq:.3g}, |dK| {u_dk:.3g}, |dV − mean dO| {u_dv:.3g}")
+        check(max(u_dq, u_dk) <= 1e-2 and u_dv <= 1e-5, f"{name} underflow rows: dQ = dK = 0, dV = mean of dO")
+
+        qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
+        t_k = cuda_ms(lambda: bwd(qb, kb, vb, dob))
+        t_p = cuda_ms(lambda: ref(qb, kb, vb, dob), runs=5)
+        qs, ks, vs = (t.detach().requires_grad_() for t in (qb, kb, vb))
+        t_fwd = cuda_ms(lambda: sdpa(qs, ks, vs))
+        t_both = cuda_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs), dob))
+        t_lib = t_both - t_fwd
+        # least time for the bf16 work: five N×N×d products (S, dV, dP, dQ, dK)
+        # on the tensor cores, or q, k, v, dO read and dq, dk, dv written once;
+        # the exponentials (3 recomputes of P here, MUFU) are printed beside
+        flops, nbytes, exps = 10 * TRAIN_BH * n * n * d, 7 * TRAIN_BH * n * d * 2, TRAIN_BH * n * n
+        t_flops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        log(f"attention_bwd {name}: bf16 kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+            f"scaled_dot_product_attention backward {t_lib:.3f} ms (fwd+bwd {t_both:.3f} − fwd {t_fwd:.3f}) | "
+            f"bound {max(t_flops, t_bytes):.4f} ms (tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}; "
+            f"{exps:.3g} exponentials per recompute of P)")
+        ms, plain_ms, library_ms = ms + t_k, plain_ms + t_p, library_ms + t_lib
+        flops_ms, bytes_ms = flops_ms + t_flops, bytes_ms + t_bytes
+        del q, k, v, do, qb, kb, vb, dob, qs, ks, vs
+        torch.cuda.empty_cache()
+
+    check(not failed, "; ".join(failed))
+    bound_ms = max(flops_ms, bytes_ms)
+    log(f"attention_bwd: three-site sum bf16 kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"scaled_dot_product_attention backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms; "
+        f"worst kernel error vs float64 per row f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
+    return {"max_abs_err": max(worst.values()), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes", "library_ms": library_ms}
+
+
+def make_class_corpus(work: str) -> tuple[str, str, list[dict]]:
+    """27 synthetic recordings of 60 s at 22,050 Hz, one class each, with 16
+    detections of 3 s: a chirp in a class-dependent band over wind noise."""
+    from scipy.io import wavfile
+
+    wav_dir = os.path.join(work, "wavs")
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(1)
+    sr, rows = 22050, []
+    for c in range(TRAIN_CLASSES):
+        t = np.arange(60 * sr) / sr
+        x = 0.02 * rng.standard_normal(len(t))
+        for j in range(TRAIN_PER_CLASS + VAL_PER_CLASS):
+            begin = 3.5 * j + float(rng.uniform(0, 0.4))
+            f0 = 1000 + 250 * c + rng.uniform(-100, 100)
+            seg = (t >= begin) & (t < begin + 3)
+            ts = t[seg] - begin
+            x[seg] += 0.4 * np.sin(2 * np.pi * (f0 * ts + 800 * ts**2 / 6)) * np.sin(np.pi * ts / 3) ** 2
+            rows.append({"file_name": f"class{c:02d}.wav", "begin_time": begin, "end_time": begin + 3,
+                         "common_name": f"class{c:02d}"})
+        wavfile.write(os.path.join(wav_dir, f"class{c:02d}.wav"), sr, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+    manifest = os.path.join(work, "manifest.csv")
+    with open(manifest, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+    return manifest, wav_dir, rows
+
+
+def run_quiet(fn, *args, **kw):
+    """fn(*args, **kw) with its standard output captured; returns (result, printed text)."""
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        result = fn(*args, **kw)
+    return result, printed.getvalue()
+
+
+def phase_train(torch, work: str) -> tuple[int, int]:
+    """cli.train_ddpm.run on the card, resumed once; returns the forward and
+    backward kernel launches of the first run (the main path)."""
+    import dataclasses
+    import shutil
+
+    from spectrogramgenai_tpu_torch.audio.export import spec_png_name
+    from spectrogramgenai_tpu_torch.cli import gen_specs, train_ddpm
+    from spectrogramgenai_tpu_torch.cli.common import load_task
+    from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
+    from spectrogramgenai_tpu_torch.core.config import DataConfig, DDPMConfig, RunConfig
+    from spectrogramgenai_tpu_torch.models.vqvae import VQVAE
+    from spectrogramgenai_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
+    from spectrogramgenai_tpu_torch.train.diffusion_task import DiffusionTask
+
+    os.chdir(work)  # datasets/, models/ and results/ under <work>, as the CLIs expect
+    t0 = time.perf_counter()
+    manifest, wav_dir, rows = make_class_corpus(work)
+    n_specs, printed = run_quiet(gen_specs.run, manifest, wav_dir, "specs", batch_size=64, exact=True,
+                                 device="cuda")
+    check(n_specs == len(rows), f"gen_specs wrote {n_specs} of {len(rows)} spectrograms")
+    per_class = TRAIN_PER_CLASS + VAL_PER_CLASS
+    for i, row in enumerate(rows):
+        split = "train" if i % per_class < TRAIN_PER_CLASS else "val"
+        dst = os.path.join("datasets", split, row["common_name"])
+        os.makedirs(dst, exist_ok=True)
+        shutil.move(os.path.join("specs", spec_png_name(row["file_name"], row["begin_time"])), dst)
+    log(f"train: corpus of {len(rows)} clips ({TRAIN_CLASSES} classes × {TRAIN_PER_CLASS} train + "
+        f"{VAL_PER_CLASS} val) through cli.gen_specs.run (exact) in {time.perf_counter() - t0:.2f} s")
+
+    vq_cfg = DDPMConfig()
+    vq = VQVAE(hidden_dim=vq_cfg.vq_hidden_dim, n_embeddings=vq_cfg.vq_n_embeddings)
+    vq.reset_parameters(torch.Generator().manual_seed(1))
+    CheckpointManager("models/train_vq").save(0, {"params": vq.state_dict()})
+    cfg = DDPMConfig(run=RunConfig(run_name="smoke_train", seed=0, log_every=1, ckpt_every_epochs=1),
+                     data=DataConfig(dataset_path="datasets", batch_size=TRAIN_BATCH),
+                     vqae_ckpt="models/train_vq", epochs=2, log_every_epoch=1)
+    steps_per_epoch = TRAIN_CLASSES * TRAIN_PER_CLASS // TRAIN_BATCH
+
+    torch.cuda.reset_peak_memory_stats()
+    fused_attention.launches = fused_attention_bwd.launches = 0  # the main path starts here
+    t_run = time.perf_counter()
+    state, printed = run_quiet(train_ddpm.run, cfg, device="cuda")
+    wall = time.perf_counter() - t_run
+    launches = (fused_attention.launches, fused_attention_bwd.launches)  # the main path ends here
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in printed.splitlines():
+        log(f"train run 1: {line}")
+    steps = 2 * steps_per_epoch
+    check(state.step == steps, f"trained {state.step} steps, {steps} expected")
+    epochs = re.findall(r"epoch (\d+): (\d+) steps in ([\d.]+) s, ([\d.]+) s/step, ([\d.]+) images/s, "
+                        r"train_mse ([\d.naif]+)", printed)
+    check(len(epochs) == 2, "two epoch lines")
+    encode = re.search(r"latent cache: (\d+) images encoded in ([\d.]+) s", printed)
+    check(encode is not None and int(encode.group(1)) == TRAIN_CLASSES * TRAIN_PER_CLASS, "latent cache line")
+    records = [json.loads(line) for line in open("results/smoke_train/metrics.jsonl")]
+    losses = [r["train_mse"] for r in records if "train_mse" in r]
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{steps} finite train losses")
+    check(sum("val_mse" in r and math.isfinite(r["val_mse"]) for r in records) == 2, "two finite val losses")
+    init_params = DiffusionTask(cfg, "cpu", vq_params=vq.state_dict()).init_state(cfg.run.seed).params
+    moved = sum(not torch.equal(state.params[k].cpu(), v) for k, v in init_params.items())
+    check(moved >= 0.9 * len(init_params), f"params changed ({moved} of {len(init_params)} tensors)")
+    want = 3 * steps
+    check(launches[0] >= want and launches[1] >= want,
+          f"attention launches fwd {launches[0]}, bwd {launches[1]} >= 3 sites × {steps} steps = {want}")
+    s_per_step = float(np.mean([float(e[3]) for e in epochs[1:]]))
+    log(f"train: {steps} steps of batch {TRAIN_BATCH} in {wall:.2f} s wall (with encode, validation, previews, "
+        f"checkpoints); epoch 1 {epochs[1][3]} s/step, {epochs[1][4]} images/s (epoch 0 {epochs[0][3]} s/step); "
+        f"latent cache encode {encode.group(2)} s for {encode.group(1)} images; losses {losses[0]:.4f} → "
+        f"{losses[-1]:.4f}; peak device memory {peak:.2f} GiB; attention launches fwd {launches[0]}, "
+        f"bwd {launches[1]} (≥ {want})")
+
+    # resume: a longer schedule from the saved step
+    fused_attention.launches = fused_attention_bwd.launches = 0
+    state2, printed = run_quiet(train_ddpm.run, dataclasses.replace(cfg, epochs=3), device="cuda")
+    for line in printed.splitlines():
+        log(f"train run 2: {line}")
+    check(f"resumed from step {steps}" in printed, f"the second run resumed from step {steps}")
+    check(state2.step == steps + steps_per_epoch, f"resumed run ended at step {state2.step}")
+    check(fused_attention_bwd.launches >= 3 * steps_per_epoch, "resumed run launched the backward kernel")
+
+    # the run's checkpoint, served: one dpmpp-20 batch through the kernel
+    task = load_task(cfg, torch.device("cuda"))
+    fused_attention.launches = 0
+    imgs = task.sample(torch.arange(cfg.num_classes), generator=torch.Generator(device="cuda").manual_seed(0),
+                       sampler="dpmpp", num_steps=NUM_STEPS)
+    check(imgs.shape == (cfg.num_classes, 256, 256, 1) and imgs.dtype == torch.uint8, "served samples' shape")
+    check(fused_attention.launches >= 3 * NUM_STEPS, "served sampling went through the kernel")
+    log(f"train: the checkpoint of step {state2.step} serves through cli.common.load_task: {cfg.num_classes} "
+        f"dpmpp-{NUM_STEPS} samples, {fused_attention.launches} forward kernel launches")
+    del task, state, state2
+    torch.cuda.empty_cache()
+    train_step_checks(torch, cfg, s_per_step)
+    return launches
+
+
+def train_step_checks(torch, cfg, s_per_step: float) -> None:
+    """One full-width step through the kernels against the plain attention route
+    (same params, t, noise and keep); a step's split; the attention share."""
+    from spectrogramgenai_tpu_torch.cli.common import restore
+    from spectrogramgenai_tpu_torch.core.ema import ema_update
+    from spectrogramgenai_tpu_torch.data.latent_cache import LatentCacheSource
+    from spectrogramgenai_tpu_torch.data.pipeline import ImageFolderSource, device_prefetch, iterate_batches
+    from spectrogramgenai_tpu_torch.diffusion.ddpm import diffusion_loss
+    from spectrogramgenai_tpu_torch.models.layers import SpatialSelfAttention
+    from spectrogramgenai_tpu_torch.train.common import microbatch_accumulate
+    from spectrogramgenai_tpu_torch.train.diffusion_task import DiffusionTask
+
+    vq = restore(cfg.vqae_ckpt, "VQ-VAE")["params"]
+    dev = torch.device("cuda")
+    task = DiffusionTask(cfg, dev, vq_params=vq, total_steps=100)
+    state = task.init_state(0)
+    src = LatentCacheSource(ImageFolderSource("datasets/train", seed=0, img_size=cfg.img_size), task.make_encoder(),
+                            dev)
+    batch = next(device_prefetch(iterate_batches(src, TRAIN_BATCH), dev))
+    x, y = batch["latent"], batch["label"]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    t = torch.randint(1, cfg.noise_steps, (TRAIN_BATCH,), device="cuda", generator=gen)
+    noise = torch.randn(x.shape, device="cuda", generator=gen)
+    keep = torch.tensor(1.0, device="cuda")
+
+    def grads_of(fused: bool):
+        for m in task.model.modules():
+            if isinstance(m, SpatialSelfAttention):
+                m.fused = fused
+        module = dict(task.model.named_parameters())
+        loss, grads = microbatch_accumulate(
+            lambda mb: diffusion_loss(task.model, task.schedule, x, y, t=t, noise=noise, keep=keep), [{}],
+            [module[k] for k in state.params])
+        return loss.item(), grads
+
+    loss_k, g_k = grads_of(True)
+    loss_p, g_p = grads_of(False)
+    scale = max(g.norm().item() for g in g_p)
+    rel = [((a - b).norm() / b.norm()).item() for a, b in zip(g_k, g_p) if b.norm().item() > 1e-3 * scale]
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    log(f"train: one full-width bf16 step, kernels vs plain attention route: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rel {loss_rel:.3g}, tolerance {STEP_LOSS_TOL}); per-tensor gradient rel. norm max {max(rel):.3g}, median "
+        f"{statistics.median(rel):.3g} over {len(rel)} of {len(g_p)} tensors (tolerance {STEP_GRAD_TOL})")
+    check(loss_rel <= STEP_LOSS_TOL, f"step loss kernel vs plain {loss_rel:.3g} <= {STEP_LOSS_TOL}")
+    check(max(rel) <= STEP_GRAD_TOL, f"step gradients kernel vs plain {max(rel):.3g} <= {STEP_GRAD_TOL}")
+    del g_k, g_p
+
+    # a step's split, CUDA events around each part (the train step's own calls)
+    for m in task.model.modules():
+        if isinstance(m, SpatialSelfAttention):
+            m.fused = True
+    module = dict(task.model.named_parameters())
+    working = [module[k] for k in state.params]
+    masters = list(state.params.values())
+    batches = device_prefetch(iterate_batches(src, TRAIN_BATCH, epochs=None), dev)
+    split = {"data": [], "forward": [], "backward": [], "optimizer": [], "ema": []}
+    for i in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        b = next(batches)
+        ev[1].record()
+        for p in working:
+            p.grad = None
+        loss = diffusion_loss(task.model, task.schedule, b["latent"], b["label"], generator=state.generator)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        for mst, p in zip(masters, working):
+            mst.grad = p.grad.float()
+        state.opt.param_groups[0]["lr"] = task.lr(state.step)
+        state.opt.step()
+        ev[4].record()
+        ema_update(state.ema_params, state.params, state.step, cfg.ema_beta, cfg.ema_start)
+        with torch.no_grad():
+            torch._foreach_copy_(working, masters)
+        ev[5].record()
+        ev[5].synchronize()
+        state.step += 1
+        if i >= 2:  # after warm-up
+            for j, key in enumerate(split):
+                split[key].append(ev[j].elapsed_time(ev[j + 1]))
+    med = {k: statistics.median(v) for k, v in split.items()}
+    log(f"train: one step's split (batch {TRAIN_BATCH}, CUDA events, median of 4): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()) + f"; sum {sum(med.values()):.3f} ms "
+        f"against {1e3 * s_per_step:.1f} ms per step in the run")
+
+    # the attention kernels' share of one step's device time
+    from torch.profiler import ProfilerActivity, profile
+
+    b = next(batches)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        task.train_step(state, b["latent"], b["label"], encoded=True)
+        torch.cuda.synchronize()
+    def device_us(e) -> float:  # the attribute's name changed across torch versions
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
+
+    # device events, less the user annotations (Optimizer.step#…) that span kernels listed on their own
+    kernels = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)]
+    total = sum(device_us(e) for e in kernels)
+    fwd = sum(device_us(e) for e in kernels if "attention_fwd" in e.key)
+    bwd = sum(device_us(e) for e in kernels if "attention_bwd" in e.key)
+    if total > 0:
+        top = sorted(kernels, key=lambda e: -device_us(e))[:8]
+        log(f"train: one step's device time {total / 1e3:.3f} ms (torch.profiler): attention fwd "
+            f"{100 * fwd / total:.1f} %, bwd {100 * bwd / total:.1f} %; top kernels: "
+            + "; ".join(f"{e.key[:70]} {device_us(e) / 1e3:.3f} ms" for e in top))
+    else:
+        log("train: torch.profiler recorded no device time; attention share not measured")
+    del batches
+
+
 def main() -> int:
     import torch
 
@@ -581,10 +971,18 @@ def main() -> int:
         os.chdir(REPO)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_specs_") as work:
         mel_launches = phase_gen_specs(torch, work)
+    bwd = phase_attention_bwd(torch, attn)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
+        train_launches = phase_train(torch, work)
+        os.chdir(REPO)
 
     kernels = [{"name": "attention_fwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_fwd.cu",
-                "replaces": "spectrogramgenai_tpu/ops/attention.py:83", "launches": launches, **kern}]
+                "replaces": "spectrogramgenai_tpu/ops/attention.py:83", "launches": launches + train_launches[0],
+                **kern},
+               {"name": "attention_bwd", "route": "cuda",
+                "source": "spectrogramgenai_tpu_torch/csrc/attention_bwd.cu",
+                "replaces": "spectrogramgenai_tpu/ops/attention.py:150", "launches": train_launches[1], **bwd}]
     for _, rung, _ in MEL_RUNGS:
         kernels.append({"name": f"mel_power_{rung}", "route": "cuda",
                         "source": "spectrogramgenai_tpu_torch/csrc/mel_power.cu",

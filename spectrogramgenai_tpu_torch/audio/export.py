@@ -1,9 +1,12 @@
-"""Spectrogram and generated-image export: viridis colormap and PNG encoding.
+"""Spectrogram and generated-image export: viridis colormap, PNG encoding and decoding.
 
 Counterpart of ``spectrogramgenai_tpu/audio/export.py`` without PIL or
-matplotlib: the viridis table is a constant here, and the PNG encoder is the
-standard library's ``zlib`` and ``struct``. Output is 8-bit RGB,
-pixel-equal to the JAX package's viridis PNGs (the bytes may differ).
+matplotlib: the viridis table is a constant here, and the PNG encoder and
+reader are the standard library's ``zlib`` and ``struct`` with NumPy. Output
+is 8-bit RGB, pixel-equal to the JAX package's viridis PNGs (the bytes may
+differ). :func:`load_image_grayscale` reads what ``native/png_batch.cpp``
+reads (8-bit, non-interlaced, colour types 0, 2, 3, 4, 6, all five row
+filters) and converts as PIL's ``convert("L")`` does, bit for bit.
 """
 
 from __future__ import annotations
@@ -114,6 +117,117 @@ def save_spectrogram_pngs(specs: np.ndarray, paths: list[str]) -> None:
         futures = [pool.submit(_write_png, im, p) for im, p in zip(rgb, paths)]
         for fut in futures:
             fut.result()
+
+
+_COLOUR_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # gray, RGB, palette, gray + alpha, RGBA
+
+
+def _rgb_to_l(rgb: np.ndarray) -> np.ndarray:
+    """PIL's integer RGB → L: (R·19595 + G·38470 + B·7471 + 0x8000) >> 16."""
+    rgb = rgb.astype(np.uint32)
+    return ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the PNG row filters of (h, 1 + stride) uint8 rows → (h, stride).
+    Rows of filter 0 (the port's own PNGs) take one vectorised pass."""
+    kinds, data = rows[:, 0], rows[:, 1:]
+    if not kinds.any():
+        return data
+    if kinds.max() > 4:
+        raise ValueError(f"unsupported PNG row filter {int(kinds.max())}")
+    h, stride = data.shape
+    out = np.empty_like(data)
+    prev = np.zeros(stride, np.int32)
+    for y in range(h):
+        src, kind = data[y].astype(np.int32), kinds[y]
+        if kind == 0:
+            cur = src
+        elif kind == 1:  # Sub: running sum along the row, per byte of the pixel
+            cur = np.cumsum(src.reshape(-1, bpp), axis=0).reshape(-1) & 0xFF
+        elif kind == 2:  # Up
+            cur = (src + prev) & 0xFF
+        else:  # Average, Paeth: each pixel needs its reconstructed left neighbour
+            cur = np.empty(stride, np.int32)
+            left, up_left = np.zeros(bpp, np.int32), np.zeros(bpp, np.int32)
+            for x in range(0, stride, bpp):
+                up = prev[x:x + bpp]
+                pred = (left + up) >> 1 if kind == 3 else _paeth(left, up, up_left)
+                left = cur[x:x + bpp] = (src[x:x + bpp] + pred) & 0xFF
+                up_left = up
+        out[y] = cur
+        prev = cur
+    return out
+
+
+def decode_png_gray(png: bytes) -> np.ndarray:
+    """PNG bytes → (H, W) uint8, as PIL's ``Image.open(…).convert("L")``.
+    Raises ValueError on an encoding it does not read."""
+    if not png.startswith(_PNG_SIGNATURE):
+        raise ValueError("not a PNG file")
+    pos, ihdr, palette, idat = 8, None, b"", []
+    while pos + 8 <= len(png):
+        (length,) = struct.unpack(">I", png[pos:pos + 4])
+        kind, body = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + length]
+        if kind == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    w, h, depth, colour, _, _, interlace = ihdr
+    if depth != 8 or interlace != 0 or colour not in _COLOUR_CHANNELS:
+        raise ValueError(f"unsupported PNG encoding: bit depth {depth}, colour type {colour}, "
+                         f"interlace {interlace} (8-bit, non-interlaced, colour types 0/2/3/4/6 only)")
+    bpp = _COLOUR_CHANNELS[colour]
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) != h * (1 + w * bpp):
+        raise ValueError(f"PNG data is {len(raw)} bytes, expected {h * (1 + w * bpp)}")
+    px = _unfilter(np.frombuffer(raw, np.uint8).reshape(h, 1 + w * bpp), bpp).reshape(h, w, bpp)
+    if colour in (0, 4):  # gray, gray + alpha: L is the gray byte
+        return px[..., 0].astype(np.uint8)
+    if colour == 3:
+        if len(palette) < 3:
+            raise ValueError("palette PNG without a PLTE chunk")
+        lut = np.frombuffer(palette[: len(palette) // 3 * 3], np.uint8).reshape(-1, 3)
+        idx = px[..., 0].astype(np.int64)
+        return _rgb_to_l(lut[np.where(idx < len(lut), idx, 0)])
+    return _rgb_to_l(px[..., :3])
+
+
+def load_image_grayscale(path: str) -> np.ndarray:
+    """An image file → (H, W) float32 in [0, 1]: a PNG as PIL's ``convert("L")``
+    / 255, or a ``.npy`` spectrogram scaled by its own min and max."""
+    if path.endswith(".npy"):
+        spec = np.load(path).astype(np.float32)
+        lo, hi = spec.min(), spec.max()
+        return (spec - lo) / (hi - lo) if hi > lo else np.zeros_like(spec)
+    with open(path, "rb") as f:
+        return decode_png_gray(f.read()).astype(np.float32) / 255.0
+
+
+def image_hw(path: str) -> tuple[int, int]:
+    """(height, width) of a PNG (from its IHDR) or a .npy array, without decoding it."""
+    if path.endswith(".npy"):
+        arr = np.load(path, mmap_mode="r")
+        return int(arr.shape[0]), int(arr.shape[1])
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if not head.startswith(_PNG_SIGNATURE) or head[12:16] != b"IHDR":
+        raise ValueError(f"{path}: not a PNG file")
+    w, h = struct.unpack(">II", head[16:24])
+    return h, w
 
 
 def save_spectrogram_npy(spec: np.ndarray, path: str) -> None:

@@ -1,12 +1,26 @@
-"""Shared CLI helpers: device selection and checkpoint loading."""
+"""Shared CLI helpers: run setup, device selection and checkpoint loading."""
 
 from __future__ import annotations
 
+import logging
 import os
+import random
 
+import numpy as np
 import torch
 
 from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
+
+
+def setup(run_cfg) -> None:
+    """What every trainer CLI wants first: INFO logging, the host and torch
+    RNGs seeded from ``run_cfg.seed``, and the run's output directory."""
+    logging.basicConfig(format="%(asctime)s - %(levelname)s: %(message)s", level=logging.INFO,
+                        datefmt="%I:%M:%S")
+    np.random.seed(run_cfg.seed % (2**32 - 1))
+    random.seed(run_cfg.seed)
+    torch.manual_seed(run_cfg.seed)
+    os.makedirs(os.path.join(run_cfg.output_dir, run_cfg.run_name), exist_ok=True)
 
 
 def resolve_device(name: str) -> torch.device:

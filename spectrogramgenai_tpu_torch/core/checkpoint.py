@@ -1,14 +1,18 @@
 """The port's checkpoints: ``torch.save`` of state_dicts, one directory per step.
 
 Layout, as in the JAX package: ``<directory>/step_XXXXXXXXXX/`` holding
-``state.pt`` and ``meta.json``. ``state.pt`` is a dict of state_dicts:
+``state.pt`` and ``meta.json``. ``state.pt`` is a dict of state_dicts and
+tensors:
 
   * a DDPM run (``models/<run_name>``): ``{"params": …, "ema_params": …}``,
-    two UNet state_dicts;
+    two UNet state_dicts, and from a training run also ``"opt_state"`` (the
+    AdamW moments by parameter name), ``"step"`` and ``"rng"`` (the train
+    step's generator state), ``train/state.py``'s ``TrainState.state_dict``;
   * a VQ-VAE (``DDPMConfig.vqae_ckpt``): ``{"params": …}``, the VQVAE
     state_dict with its codebook buffers.
 
-Tensors are saved float32 on the CPU and loaded with ``weights_only=True``.
+Floating tensors are saved float32 on the CPU, others as they are, and
+loaded with ``weights_only=True``.
 The JAX package's flax msgpack checkpoints are not read here (that needs
 flax); ``bridge.py`` converts flax parameters held in memory.
 """
@@ -30,10 +34,12 @@ class CheckpointManager:
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, f"step_{step:010d}")
 
-    def save(self, step: int, state: dict[str, dict[str, torch.Tensor]]) -> str:
-        """Write ``state`` (a dict of state_dicts) as step ``step``; keep the newest few."""
-        host = {name: {k: v.detach().to("cpu", torch.float32) if v.is_floating_point() else v.cpu()
-                       for k, v in sd.items()}
+    def save(self, step: int, state: dict) -> str:
+        """Write ``state`` (a dict of state_dicts and tensors) as step ``step``; keep the newest few."""
+        def to_host(v: torch.Tensor) -> torch.Tensor:
+            return v.detach().to("cpu", torch.float32) if v.is_floating_point() else v.detach().cpu()
+
+        host = {name: to_host(sd) if isinstance(sd, torch.Tensor) else {k: to_host(v) for k, v in sd.items()}
                 for name, sd in state.items()}
         target = self._step_dir(int(step))
         tmp = target + ".tmp"
@@ -58,8 +64,8 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int | None = None) -> dict[str, dict[str, torch.Tensor]] | None:
-        """The saved dict of state_dicts (on the CPU), or None if there is no checkpoint."""
+    def restore(self, step: int | None = None) -> dict | None:
+        """The saved dict (on the CPU), or None if there is no checkpoint."""
         step = self.latest_step() if step is None else step
         if step is None:
             return None

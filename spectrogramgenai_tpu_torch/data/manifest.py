@@ -1,4 +1,4 @@
-"""Class names from an image-folder tree, and the gen_specs detection manifest.
+"""Image-folder scans, the bootstrap class balance, and the gen_specs detection manifest.
 
 Counterparts of parts of ``spectrogramgenai_tpu/data/manifest.py`` and of the
 CSV branch of ``spectrogramgenai_tpu/cli/gen_specs.py``, without pandas.
@@ -9,12 +9,40 @@ from __future__ import annotations
 import csv
 import os
 
+import numpy as np
+
 REQUIRED_COLUMNS = ("file_name", "begin_time", "end_time")
 
 
 def class_names_from_folder(root: str) -> list[str]:
     """Sorted subdirectory names (ImageFolder convention)."""
     return sorted(d for d in os.listdir(root) if os.path.isdir(os.path.join(root, d)))
+
+
+def scan_image_folder(root: str) -> tuple[list[str], list[int], list[str]]:
+    """ImageFolder scan: (paths, integer labels, class names), sorted as the JAX scan sorts."""
+    classes = class_names_from_folder(root)
+    paths, labels = [], []
+    for ci, cname in enumerate(classes):
+        cdir = os.path.join(root, cname)
+        for fname in sorted(os.listdir(cdir)):
+            if fname.lower().endswith((".png", ".jpg", ".jpeg", ".bmp", ".npy")):
+                paths.append(os.path.join(cdir, fname))
+                labels.append(ci)
+    return paths, labels, classes
+
+
+def bootstrap_balance_indices(labels: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Class-balanced bootstrap: every class resampled with replacement up to
+    the largest class's size (the same draws as the JAX function for one rng)."""
+    labels = np.asarray(labels)
+    classes, counts = np.unique(labels, return_counts=True)
+    max_size = counts.max()
+    out = []
+    for c in classes:
+        idx = np.nonzero(labels == c)[0]
+        out.extend(rng.choice(idx, size=max_size, replace=True))
+    return np.asarray(out)
 
 
 def read_detection_manifest(path: str, limit: int | None = None) -> list[dict]:

@@ -1,12 +1,13 @@
-"""DDPM runtime in PyTorch: schedule and the three samplers of
-``spectrogramgenai_tpu/diffusion/ddpm.py``.
+"""DDPM runtime in PyTorch: schedule, forward q-sample, ε-MSE loss and the
+three samplers of ``spectrogramgenai_tpu/diffusion/ddpm.py``.
 
 Differences from the JAX module, all forced by PyTorch:
   * ``lax.scan`` becomes a Python loop over the steps.
   * Randomness comes from an explicit ``torch.Generator``. Its stream is not
     JAX's, so every sampler also takes an injected starting noise ``x_T``
-    (and ``ddpm_sample`` its per-step noise), which is how the tests feed
-    both packages the same numbers.
+    (and ``ddpm_sample`` its per-step noise), and ``diffusion_loss`` its t,
+    noise and label-keep flag, which is how the tests feed both packages the
+    same numbers.
   * The model is a callable ``model_fn(x, t, y, cond_mask) → ε`` over NHWC
     float32 tensors (a module, or a closure over one).
 
@@ -48,6 +49,46 @@ class DiffusionSchedule:
 
 def linear_schedule(noise_steps: int = 1000, beta_start: float = 1e-4, beta_end: float = 0.02):
     return DiffusionSchedule(noise_steps, beta_start, beta_end)
+
+
+@functools.lru_cache(maxsize=8)
+def _alpha_hat(schedule: DiffusionSchedule, device: torch.device) -> torch.Tensor:
+    # cached on the device: the train step would otherwise copy the table
+    # every step. Made outside inference mode, as models/layers.py's matrices
+    with torch.inference_mode(False):
+        return torch.from_numpy(schedule.alpha_hat).to(device)
+
+
+def q_sample(schedule: DiffusionSchedule, x: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion x_t = √ᾱ_t·x + √(1 − ᾱ_t)·ε."""
+    ah = _alpha_hat(schedule, x.device)[t]
+    shape = (-1,) + (1,) * (x.dim() - 1)
+    return torch.sqrt(ah).reshape(shape) * x + torch.sqrt(1.0 - ah).reshape(shape) * noise
+
+
+def diffusion_loss(model_fn: ModelFn, schedule: DiffusionSchedule, x0: torch.Tensor,
+                   labels: torch.Tensor, *, label_drop: float = 0.1,
+                   generator: torch.Generator | None = None, t: torch.Tensor | None = None,
+                   noise: torch.Tensor | None = None, keep: torch.Tensor | float | None = None
+                   ) -> torch.Tensor:
+    """ε-prediction MSE (a float32 scalar) with classifier-free label dropout.
+
+    t ~ U{1, …, noise_steps − 1} per sample, ε ~ N(0, 1), and ONE label-keep
+    draw for the whole batch (kept with probability 1 − ``label_drop``), as
+    the JAX loss draws them. Any of ``t``, ``noise`` and ``keep`` may be given
+    instead; the rest come from ``generator``, in that order.
+    """
+    n, dev = x0.shape[0], x0.device
+    if t is None:
+        t = torch.randint(1, schedule.noise_steps, (n,), generator=generator, device=dev)
+    if noise is None:
+        noise = torch.randn(x0.shape, generator=generator, device=dev, dtype=x0.dtype)
+    if keep is None:
+        keep = torch.rand((), generator=generator, device=dev) >= label_drop
+    cond_mask = torch.as_tensor(keep, dtype=torch.float32, device=dev).expand(n)
+    pred = model_fn(q_sample(schedule, x0, t.to(dev), noise), t.to(dev, torch.float32), labels, cond_mask)
+    return torch.mean((noise - pred) ** 2)
 
 
 def _guided_eps(model_fn: ModelFn, x: torch.Tensor, t: float, labels: torch.Tensor,

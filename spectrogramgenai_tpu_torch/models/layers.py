@@ -50,8 +50,11 @@ def _align_corners_matrix(n_in: int, n_out: int) -> np.ndarray:
 @functools.lru_cache(maxsize=64)
 def _resize_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     # cached on the device: the UNet's three Up blocks would otherwise copy
-    # two small host matrices to the card on every denoising step
-    return torch.from_numpy(_align_corners_matrix(n_in, n_out)).to(device=device, dtype=dtype)
+    # two small host matrices to the card on every denoising step. Made
+    # outside inference mode, so that training can use a matrix that
+    # sampling cached first
+    with torch.inference_mode(False):
+        return torch.from_numpy(_align_corners_matrix(n_in, n_out)).to(device=device, dtype=dtype)
 
 
 def upsample_bilinear_align_corners(x: torch.Tensor, scale: int = 2) -> torch.Tensor:

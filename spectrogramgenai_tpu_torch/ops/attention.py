@@ -1,10 +1,17 @@
-"""Fused self-attention forward: softmax(q·kᵀ/√d)·v over (B, H, N, D).
+"""Fused self-attention: softmax(q·kᵀ/√d)·v over (B, H, N, D), and its VJP.
 
-Counterpart of ``spectrogramgenai_tpu/ops/attention.py`` (forward only; the
-backward comes with training). On a CUDA tensor :func:`fused_attention`
-launches the hand-written kernel in ``csrc/attention_fwd.cu`` or raises; on a
-CPU tensor it computes :func:`attention_reference`, the plain PyTorch
-version of the same function. There is no other path.
+Counterpart of ``spectrogramgenai_tpu/ops/attention.py``. :func:`fused_attention`
+is differentiable through a ``torch.autograd.Function`` that saves q, k and v
+(the JAX custom VJP's residuals) and recomputes P in the backward:
+
+  * forward: on a CUDA tensor the kernel of ``csrc/attention_fwd.cu``, on a
+    CPU tensor :func:`attention_reference`;
+  * backward (:func:`fused_attention_bwd`): on a CUDA tensor the kernels of
+    ``csrc/attention_bwd.cu``, on a CPU tensor :func:`attention_bwd_reference`.
+
+Each plain version computes the same function in PyTorch; a CUDA tensor
+launches the kernel or raises. There is no other path. Under
+``torch.inference_mode`` or ``no_grad`` (serving) no autograd node is made.
 """
 
 from __future__ import annotations
@@ -28,16 +35,40 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> to
     return out.to(q.dtype)
 
 
-def _kernel() -> ctypes.CDLL:
-    lib = _build.load("attention_fwd")
-    if lib.attention_fwd.argtypes is None:  # first use: declare the C signatures
-        p = ctypes.c_void_p
-        lib.attention_fwd.argtypes = [p, p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int, p]
-        lib.attention_fwd.restype = ctypes.c_int
-        lib.attention_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.attention_fwd_error_string.restype = ctypes.c_char_p
+def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the VJP, with the full (N, N) matrices in float32:
+    P = softmax(q·kᵀ/√d); dV = Pᵀ·dO; dP = dO·Vᵀ; dS = P∘(dP − rowsum(dP∘P));
+    dQ = dS·K/√d; dK = dSᵀ·Q/√d. Outputs in the input dtype."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    p = torch.softmax((qf @ kf.mT) * scale, dim=-1)
+    dv = p.mT @ dof
+    ds = dof @ vf.mT  # dP, turned into dS in place to keep one (N, N) temporary
+    c = (ds * p).sum(dim=-1, keepdim=True)
+    ds.sub_(c).mul_(p)
+    del p
+    dq = (ds @ kf) * scale
+    dk = (ds.mT @ qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel(name: str, n_pointers: int) -> ctypes.CDLL:
+    lib = _build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:  # first use: declare the C signatures
+        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {err})")
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -59,25 +90,71 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must be contiguous")
 
 
-def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q·kᵀ/√d)·v, non-causal and unmasked, f32 accumulation, output
-    in the input dtype. Inputs are validated before the device is looked at.
-    ``fused_attention.launches`` counts kernel launches."""
-    _check(q, k, v)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.device.type == "cpu":
         return attention_reference(q, k, v)
     b, h, n, d = q.shape
-    lib = _kernel()
+    lib = _kernel("attention_fwd", 4)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 b * h, n, d, _DTYPE_CODES[q.dtype],
                                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        msg = lib.attention_fwd_error_string(err).decode()
-        raise RuntimeError(f"attention_fwd launch failed: {msg} (cudaError {err})")
+    _raise_on(lib, "attention_fwd", err)
     fused_attention.launches += 1
     return out
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of softmax(q·kᵀ/√d)·v for the output gradient ``do``, each
+    in the input dtype. ``fused_attention_bwd.launches`` counts the calls that
+    launch the kernels (two kernels per call: dQ with the row statistics, then
+    dK and dV)."""
+    _check(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
+        raise ValueError(f"do must be a contiguous {q.dtype} tensor of shape {tuple(q.shape)} on "
+                         f"{q.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
+    if q.device.type == "cpu":
+        return attention_bwd_reference(q, k, v, do)
+    b, h, n, d = q.shape
+    lib = _kernel("attention_bwd", 8)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    stats = torch.empty(3 * b * h * n, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                                b * h, n, d, _DTYPE_CODES[q.dtype],
+                                torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, "attention_bwd", err)
+    fused_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+fused_attention_bwd.launches = 0
+
+
+class _FusedAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return fused_attention_bwd(q, k, v, do.contiguous())
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q·kᵀ/√d)·v, non-causal and unmasked, f32 accumulation, output
+    in the input dtype; differentiable. Inputs are validated before the device
+    is looked at. ``fused_attention.launches`` counts forward kernel launches."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FusedAttention.apply(q, k, v)
+    return _forward(q, k, v)
 
 
 fused_attention.launches = 0

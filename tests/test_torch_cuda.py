@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (attention, mel power) against their plain versions, on the card.
+"""The port's CUDA kernels (attention forward and backward, mel power) against their plain versions, on the card.
 
 The kernels have no CPU mode, so every test here is marked ``gpu`` and skips
 without a CUDA device. On a machine with an NVIDIA Hopper card and nvcc:
@@ -19,8 +19,10 @@ from spectrogramgenai_tpu_torch.audio.spectrogram import (  # noqa: E402
 )
 from spectrogramgenai_tpu_torch.models.unet import ConditionalUNet  # noqa: E402
 from spectrogramgenai_tpu_torch.ops.attention import (  # noqa: E402
+    attention_bwd_reference,
     attention_reference,
     fused_attention,
+    fused_attention_bwd,
 )
 from spectrogramgenai_tpu_torch.ops.mel_kernel import (  # noqa: E402
     fused_logmel,
@@ -117,6 +119,66 @@ def test_unet_kernel_route_matches_plain_route(gen):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4  # f32, TF32 off
 
+
+
+def _row_rel_err(got, want) -> float:
+    """max over rows of |got − want| / |want|, norms over the head dim."""
+    got, want = got.double(), want.double()
+    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+
+def _exact_bwd(q, k, v, do):
+    q, k, v, do = q.double(), k.double(), v.double(), do.double()
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    p = torch.softmax(q @ k.mT * scale, dim=-1)
+    dp = do @ v.mT
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    return ds @ k * scale, ds.mT @ q * scale, p.mT @ do
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 1024, 32), (2, 4, 1024, 16), (1, 2, 4096, 16),
+                                   (2, 2, 256, 2), (2, 2, 256, 4), (2, 2, 128, 8), (1, 2, 384, 64)])
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_backward_kernel_matches_plain_version(gen, shape, dtype, tol):
+    q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+    before = fused_attention_bwd.launches
+    got = fused_attention_bwd(q, k, v, do)
+    torch.cuda.synchronize()
+    assert fused_attention_bwd.launches == before + 1
+    want = attention_bwd_reference(q, k, v, do)
+    exact = _exact_bwd(q, k, v, do)
+    for g, w, e in zip(got, want, exact):
+        assert g.dtype == dtype and g.shape == q.shape and torch.isfinite(g).all()
+        # per row against float64: f32 sums in another order, or the bf16
+        # rounding of the outputs (2⁻⁹ relative), as the plain version has it
+        assert _row_rel_err(g, e) <= max(tol, 2 * _row_rel_err(w, e))
+
+
+def test_autograd_through_the_kernels(gen):
+    q, k, v = (x.requires_grad_() for x in _qkv(gen, (2, 4, 1024, 16)))
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    before = (fused_attention.launches, fused_attention_bwd.launches)
+    fused_attention(q, k, v).backward(do)
+    assert (fused_attention.launches, fused_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip((q.grad, k.grad, v.grad), fused_attention_bwd(q.detach(), k.detach(), v.detach(), do)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_backward_large_logits_and_underflow(gen):
+    q, k, v, do = (torch.randn(1, 2, 1024, 16, device="cuda", generator=gen) for _ in range(4))
+    k[..., 0] += 200.0  # logits up to ~165 (see tests/test_torch_attention_bwd.py)
+    # f32 rounding of logits that large: the plain version reads 1.4e-4 here on the card
+    for g, e in zip(fused_attention_bwd(q, k, v, do), _exact_bwd(q, k, v, do)):
+        assert torch.isfinite(g).all() and _row_rel_err(g, e) <= 1e-3
+    q = torch.full((1, 1, 256, 16), 100.0, device="cuda")
+    k = torch.full((1, 1, 256, 16), -100.0, device="cuda")
+    v = torch.ones((1, 1, 256, 16), device="cuda")
+    do = torch.randn(1, 1, 256, 16, device="cuda", generator=gen)
+    dq, dk, dv = fused_attention_bwd(q, k, v, do)
+    assert torch.isfinite(dq).all() and torch.isfinite(dk).all()
+    # 0 up to the rounding of dP − c carried by |k| = 100 (see chip_smoke.py)
+    assert dq.abs().max().item() <= 1e-2 and dk.abs().max().item() <= 1e-2
+    torch.testing.assert_close(dv, do.mean(dim=2, keepdim=True).expand_as(dv), rtol=0, atol=1e-5)
 
 
 @pytest.mark.parametrize("exact", [True, "high", False])

@@ -4,6 +4,23 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's torch ops on one thread (import this fixture into it).
+
+    The suite runs in several worker processes at once; torch's default of
+    one intra-op thread per core then makes their OpenMP threads spin
+    against each other: two CPU training tests took 279 s with eight threads
+    and 7.6 s with one, beside six busy processes on eight cores."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_flax_variables(module, *init_args, seed: int = 0) -> dict:
