@@ -14,9 +14,12 @@ Phases, each fatal on failure (nothing is caught and passed over):
   3. kernel   — the attention kernel against its plain PyTorch version at the
                 UNet's three fused sites (B·H = 216 = serve batch 27 × CFG 2
                 × 4 heads): f32 ≤ 1e-4 with TF32 off, bf16 ≤ 1e-2 against the
-                f32 upcast of the same inputs, a large-logit row, and the
-                small head dims; kernel, plain and scaled_dot_product_attention
-                times (CUDA events, median) and the bound.
+                f32 upcast of the same inputs, the residuals that training
+                saves (row log-sum-exp, f32 output) against the plain
+                version's, a large-logit row, and the small head dims;
+                kernel (with and without residuals), plain and
+                scaled_dot_product_attention times (CUDA events, median) and
+                the bound.
   4. mel      — each mel kernel rung (exact, high, fast) against its plain
                 version (per element, down to 80 dB under each clip's max)
                 and the float64 oracle on the stress clips of
@@ -24,7 +27,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 at 48 kHz, 5 of odd length), within each rung's dB bounds
                 (tests/torch_mel_helpers.py; typical: kind 3 of the tool's 64;
                 adversarial: every clip); kernel, plain and torch.stft +
-                filterbank times at batch 64.
+                filterbank times at batch 64. The exact rung is a float64
+                FFT; its bound is reckoned from the FFT's work.
   5. serve    — the full-width latent DDPM (UNet width 1.0, 27 classes,
                 64×64×4 latent; VQ-VAE hidden 512, 512 codes) with seeded
                 random weights, saved as checkpoints and served through
@@ -37,14 +41,16 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 exact .npy arrays at the exact rung's bound against the oracle,
                 exact and high PNGs within 2 levels, a kernel launch per batch;
                 specs/s and the decode / mel kernel / dB glue / encode split.
-  7. attention_bwd — the backward kernel against its plain version and both
-                against float64, per row (dQ by query row, dK and dV by key
-                row, each normalised by its own norm), at the training sites
-                (B·H = 128 = batch 32 × 4 heads): f32 with TF32 off, bf16
-                against the f64 of the same bf16 inputs, a large-logit head
-                and an underflow row; kernel, plain and
-                scaled_dot_product_attention backward (fwd+bwd − fwd) times
-                and the bound.
+  7. attention_bwd — the backward kernels against their plain version and
+                both against float64, per row (dQ by query row, dK and dV by
+                key row, each normalised by its own norm), at the training
+                sites (B·H = 128 = batch 32 × 4 heads): f32 (the scalar
+                kernels) with TF32 off, bf16 (the tensor-core kernels, given
+                the forward's residuals) against the f64 of the same bf16
+                inputs, a large-logit head and an underflow row; kernel
+                (given the residuals), plain and scaled_dot_product_attention
+                backward (fwd+bwd − fwd) times, the bound and the
+                exponentials' floor.
   8. train    — a 27-class corpus (10 train + 6 val clips per class) through
                 cli.gen_specs.run (exact rung) into datasets/{train,val}/;
                 seeded random full-size VQ-VAE saved as a checkpoint;
@@ -108,13 +114,15 @@ LARGE_LOGIT_TOL = {"float32": 5e-4, "bfloat16": 5e-3}
 # 9.1e-5 relative, per-tensor gradient 6.3e-3 at most, median 2.0e-3)
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 2e-2
 # H100 SXM peaks (NVIDIA's data sheet): memory rate, bf16 tensor cores, and the
-# scalar float32 rate, which is also the float64 tensor-core rate
-H100_BYTES_PER_S, H100_BF16_FLOPS, H100_F32_FLOPS = 3.35e12, 989e12, 67e12
+# float64 rate outside the tensor cores (half the scalar float32 rate of 67)
+H100_BYTES_PER_S, H100_BF16_FLOPS, H100_F64_FLOPS = 3.35e12, 989e12, 34e12
+# exponentials: MUFU issues 16 a clock per SM, ~4.2e12/s over 132 SMs
+H100_EXP_PER_S = 4.2e12
 MEL_RUNGS = ((True, "exact", "spectrogramgenai_tpu/ops/mel_kernel.py:94"),
              ("high", "high", "spectrogramgenai_tpu/ops/mel_kernel.py:147"),
              (False, "fast", "spectrogramgenai_tpu/ops/mel_kernel.py:94"))
-# (bf16 products of the DFT, of the filterbank product) per rung
-MEL_PRODUCTS = {"exact": (1, 1), "high": (3, 3), "fast": (1, 1)}
+# (bf16 products of the DFT, of the filterbank product) of the tensor-core rungs
+MEL_PRODUCTS = {"high": (3, 3), "fast": (1, 1)}
 
 
 def check(ok: bool, what: str) -> None:
@@ -185,7 +193,7 @@ def phase_kernel(torch, attn) -> dict:
     def rand(n, d, dtype):
         return [torch.randn(1, BH, n, d, device="cuda", generator=gen).to(dtype) for _ in range(3)]
 
-    max_err, ms, plain_ms, library_ms, flops_ms, bytes_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    max_err, ms, res_ms, plain_ms, library_ms, flops_ms, bytes_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
     for name, n, d in SA_SITES:
         q, k, v = rand(n, d, torch.float32)
         err32 = (fused(q, k, v) - ref(q, k, v)).abs().max().item()
@@ -197,6 +205,14 @@ def phase_kernel(torch, attn) -> dict:
         check(out.dtype == torch.bfloat16, "bf16 output dtype")
         err16 = (out.float() - ref(qb.float(), kb.float(), vb.float())).abs().max().item()
         check(err16 <= 1e-2, f"{name} bf16 max abs err {err16} <= 1e-2")
+        # the residuals of training (bf16): the row log-sum-exp to f32 rounding
+        # of its logits, the f32 output to f32 sums in another order
+        out_r, lse, o32 = attn.fused_attention_residuals(qb, kb, vb)
+        _, lse_p, o32_p = ref(qb, kb, vb, residuals=True)
+        err_lse, err_o32 = (lse - lse_p).abs().max().item(), (o32 - o32_p).abs().max().item()
+        check(err_lse <= 1e-4 and err_o32 <= 1e-4 and bool((o32.bfloat16() == out_r).all()),
+              f"{name} residuals: lse {err_lse:.3g}, o32 {err_o32:.3g} <= 1e-4; out is o32 rounded")
+        del out_r, lse, o32, lse_p, o32_p
 
         # large logits (q×100, |logit| in the hundreds): the online softmax must
         # neither overflow nor flatten. At that size f32 rounding of the logit
@@ -218,6 +234,7 @@ def phase_kernel(torch, attn) -> dict:
         check(errlb <= 1e-2, f"{name} bf16 large-logit max rel err {errlb} <= 1e-2")
 
         t_k = cuda_ms(lambda: fused(qb, kb, vb))
+        t_res = cuda_ms(lambda: attn.fused_attention_residuals(qb, kb, vb))
         t_p = cuda_ms(lambda: ref(qb, kb, vb))
         t_k32 = cuda_ms(lambda: fused(q, k, v))
         t_p32 = cuda_ms(lambda: ref(q, k, v))
@@ -228,12 +245,15 @@ def phase_kernel(torch, attn) -> dict:
         flops, nbytes, exps = 4 * BH * n * n * d, 4 * BH * n * d * 2, BH * n * n
         t_flops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
         log(f"kernel {name} (B·H={BH}, N={n}, d={d}): err f32 {err32:.3g} bf16 {err16:.3g} "
+            f"residuals lse {err_lse:.3g} o32 {err_o32:.3g} "
             f"large-logit vs f64: f32 {errl:.3g} (plain f32 {errl_plain:.3g}), bf16(rel) {errlb:.3g} | "
-            f"bf16 kernel {t_k:.3f} ms, plain {t_p:.3f} ms, scaled_dot_product_attention {t_lib:.3f} ms | "
+            f"bf16 kernel {t_k:.3f} ms (with residuals {t_res:.3f} ms), plain {t_p:.3f} ms, "
+            f"scaled_dot_product_attention {t_lib:.3f} ms | "
             f"f32 kernel {t_k32:.3f} ms, plain {t_p32:.3f} ms | bound {max(t_flops, t_bytes):.4f} ms "
             f"(tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}; {exps:.3g} exponentials)")
         max_err = max(max_err, err32, err16)
         ms += t_k
+        res_ms += t_res
         plain_ms += t_p
         library_ms += t_lib
         flops_ms += t_flops
@@ -249,10 +269,12 @@ def phase_kernel(torch, attn) -> dict:
             check(err <= tol, f"d={d} {dtype} max abs err {err} <= {tol}")
     torch.cuda.synchronize()
     bound_ms = max(flops_ms, bytes_ms)
-    log(f"kernel: head dims 2, 4, 8, 64 match in f32 and bf16; three-site sum bf16 kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, scaled_dot_product_attention {library_ms:.3f} ms, bound {bound_ms:.4f} ms")
+    log(f"kernel: head dims 2, 4, 8, 64 match in f32 and bf16; three-site sum bf16 kernel {ms:.3f} ms "
+        f"(with residuals {res_ms:.3f} ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
+        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes", "library_ms": library_ms}
+            "bound_by": "operations" if flops_ms >= bytes_ms else "bytes", "library_ms": library_ms,
+            "residuals_ms": res_ms}
 
 
 def phase_mel(torch) -> dict[str, dict]:
@@ -324,12 +346,18 @@ def phase_mel(torch) -> dict[str, dict]:
 
         t_k = cuda_ms(lambda: mk.fused_mel_power(audio64, cfg, exact))
         t_p = cuda_ms(lambda: mk.mel_power_reference(audio64, cfg, exact))
-        # least time: the products the kernel issues, or its inputs read and output written once
-        w, fb, _ = mk._kernel_constants(cfg, audio64.device, rung)
-        dft_p, mel_p = MEL_PRODUCTS[rung]
-        flops = 4 * b * t_frames * cfg.n_fft * cfg.n_bins * dft_p + 2 * b * t_frames * cfg.n_bins * cfg.n_mels * mel_p
-        nbytes = audio64.nbytes + w.nbytes + fb.nbytes + 4 * b * t_frames * cfg.n_mels
-        t_flops = flops / (H100_F32_FLOPS if rung == "exact" else H100_BF16_FLOPS) * 1e3
+        # least time: the operations of the kernel's algorithm, or its inputs
+        # and constants read and output written once
+        consts = [c for c in mk._kernel_constants(cfg, audio64.device, rung) if isinstance(c, torch.Tensor)]
+        nbytes = audio64.nbytes + sum(c.nbytes for c in consts) + 4 * b * t_frames * cfg.n_mels
+        if rung == "exact":  # the FFT: one complex transform per pair of frames, in float64
+            flops = fft_mel_flops(b, t_frames, cfg.n_fft, int(consts[2][:, 1].sum().item()))
+            t_flops = flops / H100_F64_FLOPS * 1e3
+        else:  # the DFT and filterbank products on the bf16 tensor cores
+            dft_p, mel_p = MEL_PRODUCTS[rung]
+            flops = (4 * b * t_frames * cfg.n_fft * cfg.n_bins * dft_p
+                     + 2 * b * t_frames * cfg.n_bins * cfg.n_mels * mel_p)
+            t_flops = flops / H100_BF16_FLOPS * 1e3
         t_bytes = nbytes / H100_BYTES_PER_S * 1e3
         log(f"mel {rung}: batch {b} kernel {t_k:.3f} ms, plain {t_p:.3f} ms, torch.stft {t_lib:.3f} ms; "
             f"bound {max(t_flops, t_bytes):.4f} ms (flops {flops:.4g} → {t_flops:.4f} ms, "
@@ -342,6 +370,16 @@ def phase_mel(torch) -> dict[str, dict]:
     del audio64
     torch.cuda.empty_cache()
     return out
+
+
+def fft_mel_flops(b: int, t_frames: int, n_fft: int, nnz: int) -> int:
+    """float64 operations of the exact rung for b clips of t_frames frames: per
+    pair of frames the window (2 per sample), one complex FFT (5·N·log2 N),
+    the two spectra's split and power (14 per bin); per frame 2 per nonzero
+    filterbank weight."""
+    pairs = b * -(-t_frames // 2)
+    per_pair = 2 * n_fft + 5 * n_fft * int(math.log2(n_fft)) + 14 * (n_fft // 2 + 1)
+    return pairs * per_pair + 2 * b * t_frames * nnz
 
 
 def viridis_index(rgb: np.ndarray) -> np.ndarray:
@@ -614,13 +652,18 @@ def phase_attention_bwd(torch, attn) -> dict:
     heads64 = 16  # heads held to float64 (its (N, N) matrices at N = 4096 take 2 GB each)
 
     failed, worst = [], {"float32": 0.0, "bfloat16": 0.0}
-    ms = plain_ms = library_ms = flops_ms = bytes_ms = 0.0
+    ms = plain_ms = library_ms = flops_ms = bytes_ms = exp_ms = 0.0
+
+    def residuals(q, k, v, do):
+        """The forward's residuals that the bf16 backward takes; none for f32."""
+        return attn.fused_attention_residuals(q, k, v)[1:] if q.dtype == torch.bfloat16 else ()
+
     for name, n, d in SA_SITES:
         q, k, v, do = (torch.randn(1, TRAIN_BH, n, d, device="cuda", generator=gen) for _ in range(4))
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).split(".")[-1]
             args = [t.to(dtype) for t in (q, k, v, do)]
-            got = bwd(*args)
+            got = bwd(*args, *residuals(*args))
             want = ref(*args)
             torch.cuda.synchronize()
             exact = exact_bwd64(*(t[:, :heads64] for t in args))
@@ -644,7 +687,8 @@ def phase_attention_bwd(torch, attn) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             key = str(dtype).split(".")[-1]
             args = [t.to(dtype) for t in (ql, kl, vl, dol)]
-            for label, g, w, e in zip(("dq", "dk", "dv"), bwd(*args), ref(*args), exact_bwd64(*args)):
+            got = bwd(*args, *residuals(*args))
+            for label, g, w, e in zip(("dq", "dk", "dv"), got, ref(*args), exact_bwd64(*args)):
                 k_err, p_err = row_rel_err(g, e), row_rel_err(w, e)
                 log(f"attention_bwd {name} large logits {key} {label}: kernel {k_err:.3g}, plain {p_err:.3g}")
                 check(bool(torch.isfinite(g).all()), f"{name} large-logit {key} {label} finite")
@@ -666,30 +710,35 @@ def phase_attention_bwd(torch, attn) -> dict:
         check(max(u_dq, u_dk) <= 1e-2 and u_dv <= 1e-5, f"{name} underflow rows: dQ = dK = 0, dV = mean of dO")
 
         qb, kb, vb, dob = (t.bfloat16() for t in (q, k, v, do))
-        t_k = cuda_ms(lambda: bwd(qb, kb, vb, dob))
+        lse, o32 = residuals(qb, kb, vb, dob)
+        t_k = cuda_ms(lambda: bwd(qb, kb, vb, dob, lse, o32))  # the backward alone, given the residuals
         t_p = cuda_ms(lambda: ref(qb, kb, vb, dob), runs=5)
         qs, ks, vs = (t.detach().requires_grad_() for t in (qb, kb, vb))
         t_fwd = cuda_ms(lambda: sdpa(qs, ks, vs))
         t_both = cuda_ms(lambda: torch.autograd.grad(sdpa(qs, ks, vs), (qs, ks, vs), dob))
         t_lib = t_both - t_fwd
         # least time for the bf16 work: five N×N×d products (S, dV, dP, dQ, dK)
-        # on the tensor cores, or q, k, v, dO read and dq, dk, dv written once;
-        # the exponentials (3 recomputes of P here, MUFU) are printed beside
-        flops, nbytes, exps = 10 * TRAIN_BH * n * n * d, 7 * TRAIN_BH * n * d * 2, TRAIN_BH * n * n
+        # on the tensor cores, or q, k, v, dO, lse and O₃₂ read and dq, dk, dv
+        # written once; beside it the floor of the exponentials (P once in
+        # each of the two kernels, MUFU)
+        flops, exps = 10 * TRAIN_BH * n * n * d, 2 * TRAIN_BH * n * n
+        nbytes = 7 * TRAIN_BH * n * d * 2 + TRAIN_BH * n * 4 + TRAIN_BH * n * d * 4
         t_flops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        t_exp = exps / H100_EXP_PER_S * 1e3
         log(f"attention_bwd {name}: bf16 kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
             f"scaled_dot_product_attention backward {t_lib:.3f} ms (fwd+bwd {t_both:.3f} − fwd {t_fwd:.3f}) | "
-            f"bound {max(t_flops, t_bytes):.4f} ms (tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}; "
-            f"{exps:.3g} exponentials per recompute of P)")
+            f"bound {max(t_flops, t_bytes):.4f} ms (tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}); "
+            f"exponentials' floor {t_exp:.4f} ms ({exps:.3g} at {H100_EXP_PER_S:.2g}/s)")
         ms, plain_ms, library_ms = ms + t_k, plain_ms + t_p, library_ms + t_lib
-        flops_ms, bytes_ms = flops_ms + t_flops, bytes_ms + t_bytes
-        del q, k, v, do, qb, kb, vb, dob, qs, ks, vs
+        flops_ms, bytes_ms, exp_ms = flops_ms + t_flops, bytes_ms + t_bytes, exp_ms + t_exp
+        del q, k, v, do, qb, kb, vb, dob, qs, ks, vs, lse, o32
         torch.cuda.empty_cache()
 
     check(not failed, "; ".join(failed))
     bound_ms = max(flops_ms, bytes_ms)
     log(f"attention_bwd: three-site sum bf16 kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"scaled_dot_product_attention backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms; "
+        f"scaled_dot_product_attention backward {library_ms:.3f} ms, bound {bound_ms:.4f} ms, "
+        f"exponentials' floor {exp_ms:.4f} ms; "
         f"worst kernel error vs float64 per row f32 {worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
     return {"max_abs_err": max(worst.values()), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops_ms >= bytes_ms else "bytes", "library_ms": library_ms}

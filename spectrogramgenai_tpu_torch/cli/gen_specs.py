@@ -136,7 +136,7 @@ def main(argv=None):
     p.add_argument("--save_npy", type=int, default=0)
     p.add_argument("--limit", type=int, default=None)
     p.add_argument("--exact", default="1", choices=list(EXACT_CHOICES),
-                   help="1 = float32 operands, float64 DFT sums (default); high = three bf16 tensor-core "
+                   help="1 = a float64 FFT, the oracle's arithmetic (default); high = three bf16 tensor-core "
                         "products (bf16_3x); 0 = one bf16 product of bf16-rounded operands, fastest")
     p.add_argument("--device", default="cuda", help="cuda (default; raises without a card) or cpu")
     a = p.parse_args(argv)

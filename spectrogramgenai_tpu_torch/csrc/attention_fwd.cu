@@ -26,6 +26,15 @@
 // moving the two products onto the tensor cores (mma.sync or wgmma) is the
 // next step for speed.
 //
+// Residuals for the backward (csrc/attention_bwd.cu), written only when the
+// caller passes their pointers (training under autograd; serving passes
+// null and runs the kernel it always ran): the row log-sum-exp in the exp2
+// domain, lse = m + log2(l), and the output in f32. Then the score is taken
+// as the backward's tensor-core kernels take it, the dot product first and
+// log2(e)/√d applied as a product rounded on its own, so that P = exp2(s −
+// lse) in the backward is the forward's P (exactly 1/N in a row of equal
+// logits, where a folded scale would round differently).
+//
 // Built by spectrogramgenai_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 // and called through the plain C interface at the bottom (ctypes).
@@ -91,12 +100,14 @@ __device__ __forceinline__ void axpy_row(float (&acc)[D], float p, const float* 
   }
 }
 
-// q, k, v, o: (bh, n, D) contiguous. Grid: bh · (n / kBlockQ) blocks, the
-// query tiles of one (b, h) adjacent so that its K and V stay hot in L2.
-template <typename T, int D>
+// q, k, v, o: (bh, n, D) contiguous; with RES, lse: (bh, n) and o32: (bh, n,
+// D) f32. Grid: bh · (n / kBlockQ) blocks, the query tiles of one (b, h)
+// adjacent so that its K and V stay hot in L2.
+template <typename T, int D, bool RES>
 __global__ void __launch_bounds__(kBlockQ)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ o, int n, float scale_log2) {
+                     T* __restrict__ o, float* __restrict__ lse, float* __restrict__ o32, int n,
+                     float scale_log2) {
   __shared__ __align__(16) float sk[kBlockK * D];
   __shared__ __align__(16) float sv[kBlockK * D];
 
@@ -110,7 +121,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const T* qp = q + head + static_cast<size_t>(row) * D;
 #pragma unroll
   for (int c = 0; c < D; ++c) {
-    q_row[c] = to_f32(qp[c]) * scale_log2;
+    q_row[c] = RES ? to_f32(qp[c]) : to_f32(qp[c]) * scale_log2;
     acc[c] = 0.f;
   }
   float m = -INFINITY;  // running row max, log2 domain
@@ -133,6 +144,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
 #pragma unroll
       for (int j = 0; j < kChunk; ++j) {
         s[j] = dot_row<D>(q_row, sk + (j0 + j) * D);
+        if constexpr (RES) s[j] = __fmul_rn(s[j], scale_log2);  // not contracted into s − m
         chunk_max = fmaxf(chunk_max, s[j]);
       }
       const float m_new = fmaxf(m, chunk_max);
@@ -154,30 +166,42 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   T* op = o + head + static_cast<size_t>(row) * D;
 #pragma unroll
   for (int c = 0; c < D; ++c) op[c] = from_f32<T>(acc[c] * inv_l);
+  if constexpr (RES) {
+    lse[static_cast<size_t>(bh) * n + row] = m + log2f(l);
+    float* o32p = o32 + head + static_cast<size_t>(row) * D;
+#pragma unroll
+    for (int c = 0; c < D; ++c) o32p[c] = acc[c] * inv_l;
+  }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                   cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, float* o32, int bh,
+                   int n, cudaStream_t stream) {
   const int64_t blocks = static_cast<int64_t>(bh) * (n / kBlockQ);
-  if (blocks <= 0 || blocks > INT32_MAX) return cudaErrorInvalidValue;
+  if (blocks <= 0 || blocks > INT32_MAX || (lse == nullptr) != (o32 == nullptr)) return cudaErrorInvalidValue;
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(D));
-  attention_fwd_kernel<T, D><<<static_cast<unsigned>(blocks), kBlockQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), n, scale_log2);
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  if (lse == nullptr)
+    attention_fwd_kernel<T, D, false><<<static_cast<unsigned>(blocks), kBlockQ, 0, stream>>>(
+        tq, tk, tv, static_cast<T*>(o), nullptr, nullptr, n, scale_log2);
+  else
+    attention_fwd_kernel<T, D, true><<<static_cast<unsigned>(blocks), kBlockQ, 0, stream>>>(
+        tq, tk, tv, static_cast<T*>(o), lse, o32, n, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                       int d, cudaStream_t stream) {
+cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, float* lse, float* o32, int bh,
+                       int n, int d, cudaStream_t stream) {
   switch (d) {
-    case 2: return launch<T, 2>(q, k, v, o, bh, n, stream);
-    case 4: return launch<T, 4>(q, k, v, o, bh, n, stream);
-    case 8: return launch<T, 8>(q, k, v, o, bh, n, stream);
-    case 16: return launch<T, 16>(q, k, v, o, bh, n, stream);
-    case 32: return launch<T, 32>(q, k, v, o, bh, n, stream);
-    case 64: return launch<T, 64>(q, k, v, o, bh, n, stream);
+    case 2: return launch<T, 2>(q, k, v, o, lse, o32, bh, n, stream);
+    case 4: return launch<T, 4>(q, k, v, o, lse, o32, bh, n, stream);
+    case 8: return launch<T, 8>(q, k, v, o, lse, o32, bh, n, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, o32, bh, n, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, o32, bh, n, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, o32, bh, n, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -186,15 +210,19 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v, void* o, int
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success) taken
-// with cudaGetLastError() right after the launch. Does not synchronise.
-int attention_fwd(const void* q, const void* k, const void* v, void* o, int bh, int n, int d,
-                  int dtype, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. lse ((bh, n) f32) and o32 ((bh, n, d)
+// f32) are both null (no residuals) or both set. Returns a cudaError_t (0 =
+// success) taken with cudaGetLastError() right after the launch. Does not
+// synchronise.
+int attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, void* o32, int bh, int n,
+                  int d, int dtype, void* stream) {
   if (n <= 0 || n % kBlockQ != 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
+  float* o2 = static_cast<float*>(o32);
   switch (dtype) {
-    case 0: return dispatch_d<float>(q, k, v, o, bh, n, d, s);
-    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, bh, n, d, s);
+    case 0: return dispatch_d<float>(q, k, v, o, l, o2, bh, n, d, s);
+    case 1: return dispatch_d<__nv_bfloat16>(q, k, v, o, l, o2, bh, n, d, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,12 @@
 // Fused mel power spectrogram for Hopper (sm_90a):
-//   (B, N) f32 audio → centred zero-padded frames → Hann-folded real DFT →
-//   re² + im² → mel filterbank → (B, T, n_mels) f32.
+//   (B, N) f32 audio → centred zero-padded frames → Hann window → power
+//   spectrum re² + im² → mel filterbank → (B, T, n_mels) f32.
 //
 // Replaces the two Pallas kernels behind spectrogramgenai_tpu/ops/mel_kernel.py
 // fused_mel_power, one kernel per precision rung:
-//   mel_power_exact_kernel       _mel_kernel (:94) with exact=True (HIGHEST):
-//                                float32 operands, scalar FMA outside the
-//                                tensor cores, the DFT sums in float64.
+//   mel_power_fft_kernel<LOG2N>  _mel_kernel (:94) with exact=True (HIGHEST):
+//                                a float64 FFT of two frames at once, the
+//                                power and the mel sums in float64.
 //   mel_power_mma_kernel<2>      _mel_kernel_3pass (:147), exact="high": each
 //                                product as three bf16 tensor-core products of
 //                                hi/lo splits, a_hi·b_hi + a_hi·b_lo + a_lo·b_hi.
@@ -14,49 +14,53 @@
 //                                each product as one bf16 tensor-core product
 //                                of operands rounded to bf16.
 //
+// The exact rung is defined by its error against the float64 oracle
+// (0.0005 dB typical, 0.0014 dB adversarial), not by the TPU kernel's DFT
+// matmul, so it computes the oracle's own arithmetic: frames widened to
+// float64 times the float32 Hann values, a float64 FFT with float64
+// twiddles, float64 power and filterbank sums, one rounding to float32.
+//
 // What bounds it on Hopper. At the front end's batch (64 clips of 6 s at
-// 22,050 Hz, n_fft 2048, hop 384: T = 345 frames, 1,025 bins) the DFT product
-// is 2·2·T·n_fft·bins = 2.9e9 flop per clip and the mel product 1.8e8, about
-// 2e11 flop per batch, against ~34 MB of audio in, 23 MB out and 17–35 MB of
-// constants (by rung) that stay in the 50 MB L2. So every rung is bound by issue, not
-// bytes: scalar FMA for the exact rung (67 TFLOP/s in float32, half that in
-// float64), about 3 ms at best; bf16 tensor cores (989 TFLOP/s) for the
-// others: ~0.2 ms for one product ("fast"), ×3 for "high".
+// 22,050 Hz, n_fft 2048, hop 384: T = 345 frames, 1,025 bins) an FFT needs
+// ~5·N·log2(N) = 1.1e5 flop per complex transform, and two real frames share
+// one: ~1.5e9 float64 flop per batch with the windowing, unpacking, power and
+// mel sums, 0.045 ms at the H100's 34 TFLOP/s float64 vector rate, against
+// 34 MB of audio in and 23 MB out (0.017 ms at 3.35 TB/s). The DFT as a
+// matmul is 2e11 flop, 130× more: the algorithm, not tuning, is the gain.
+// The likely limit of this first design is shared memory: every radix-4
+// stage reads and writes the 32 KB transform once, ~4 GB per batch.
 //
-// Why the exact rung sums in float64. Far from a loud tone the DFT's running
-// sums swing far above their final value, and float32 rounding of those
-// partial sums (not of the products, which an FMA keeps exact) leaves
-// 0.001–0.004 dB at the quiet bins after the log, above the rung's bound of
-// 0.0005 dB typical / 0.0014 dB adversarial, even with the sums blocked in
-// chunks of 4 to 64 samples. A product of two float32 values is exact in
-// float64, so DFMA accumulation leaves only the float32 rounding of the DFT
-// matrices themselves (~3e-4 dB).
+// What the design does about it (exact rung).
+//  - One block of 256 threads per pair of frames of one clip: frame 2j is
+//    the real part and frame 2j + 1 the imaginary part of one complex
+//    n_fft-point signal, read straight from the clip with the centre padding
+//    as zeros (an odd last frame pairs with zeros).
+//  - A Stockham autosort FFT in shared memory, double2 ping-pong buffers
+//    (2·16·n_fft bytes), radix-4 stages after one radix-2 stage when log2
+//    n_fft is odd; twiddles come from a host table built in float64
+//    (np.exp), read through L1.
+//  - The two spectra are split from Z as A[k] = (Z[k] + Z*[N−k])/2 and
+//    B[k] = (Z[k] − Z*[N−k])/2i; their power goes to shared memory.
+//  - The filterbank product is not dense: a Slaney filter covers a short
+//    contiguous bin range, so one thread per mel sums its own range from a
+//    host table (first bin, count, weights), in float64 with FMA.
+//  - No atomics: the result is the same from run to run.
 //
-// What the design does about it.
-//  - No framing copy: frame f of a clip starts at sample f·hop of the padded
-//    signal, so a block stages the stretch of audio its 64 frames cover in
-//    shared memory once and reads every frame as a strided view of it.
-//  - The power stays on chip: one block owns one (clip, 64-frame tile) and
-//    walks all frequency blocks in a loop (the TPU kernel's sequential
-//    "arbitrary" grid dimension). For each it computes re and im, the power,
-//    and adds power·fbᵀ into a mel accumulator held in registers. The (B, T,
-//    bins) power never reaches device memory, and no atomics are used, so a
-//    result is the same from run to run.
-//  - The constant matrices are laid out on the host in the order the threads
-//    read them (ops/mel_kernel.py), so each lane loads its operands with
-//    16-byte loads straight from L2/L1, with no shared-memory staging.
-//  - Exact: the staged audio is widened to float64 once (no conversion in
-//    the loop), and the DFT matrices' float32 values are stored as float64.
-//    A warp owns 8 frames and a lane one bin of a 32-bin block; two samples
-//    of a frame are one warp-wide broadcast load from shared memory, and a
-//    lane's Wc and Ws values for them two 16-byte loads.
-//  - high / fast: a warp owns 16 frames; per 16-bin block it runs
-//    mma.sync.m16n8k16 (bf16 in, f32 accumulation) for re and im, forms the
-//    power in the accumulator registers, which are already laid out as the A
-//    operand of the next m16n8k16, and multiplies by the filterbank there.
-//    "high" splits the audio into bf16 hi + lo as it is staged and the power
-//    in registers, and sums the DFT terms with a lo part in their own
-//    accumulators; "fast" rounds both to bf16. wgmma and TMA are later work.
+// high / fast rungs. The audio stays on chip: one block owns one (clip,
+// 64-frame tile), stages the stretch of audio its frames cover in shared
+// memory once and reads every frame as a strided view of it, then walks all
+// frequency blocks in a loop (the TPU kernel's sequential "arbitrary" grid
+// dimension). A warp owns 16 frames; per 16-bin block it runs
+// mma.sync.m16n8k16 (bf16 in, f32 accumulation) for re and im, forms the
+// power in the accumulator registers, which are already laid out as the A
+// operand of the next m16n8k16, and multiplies by the filterbank there. The
+// constant matrices are laid out on the host in the order the lanes read
+// them (ops/mel_kernel.py), so each lane loads its B operands with 16-byte
+// loads from L2/L1. "high" splits the audio into bf16 hi + lo as it is staged
+// and the power in registers, and sums the DFT terms with a lo part in their
+// own accumulators; "fast" rounds both to bf16. These rungs' bf16 rounding is
+// what defines them; they are bound by tensor-core issue (~2e11 flop per
+// batch at 989 TFLOP/s: ~0.2 ms for one product, ×3 for "high").
 //
 // Built by spectrogramgenai_tpu_torch/ops/_build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
@@ -72,106 +76,131 @@ namespace {
 constexpr int kTileFrames = 64;  // frames per block
 constexpr int kMels = 256;       // mel columns of the accumulator (n_mels ≤ 256, zero-padded)
 
-// ---------------------------------------------------------------- exact rung
+// ------------------------------------------------ exact rung: float64 FFT
 
-constexpr int kExactThreads = 256;      // 8 warps × 8 frames
-constexpr int kExactWarpFrames = 8;
-constexpr int kExactBins = 32;          // one bin per lane
-constexpr int kExactPStride = kTileFrames + 4;  // power tile row stride (floats), conflict-free stores
+constexpr int kFftThreads = 256;
 
-// audio: (B, n). wx: (n_fft/2, nbp, 2) double2, [k/2][bin][m] = (W_m[k][bin], W_m[k+1][bin]) for
-// m = Wc, Ws (float32 values held as float64). fbt: (nbp, kMels) float32 = filterbankᵀ,
-// zero-padded. out: (B, t_frames, n_mels).
-__global__ void __launch_bounds__(kExactThreads, 1)
-mel_power_exact_kernel(const float* __restrict__ audio, const double2* __restrict__ wx,
-                       const float* __restrict__ fbt, float* __restrict__ out, int n, int t_frames,
-                       int n_fft, int hop, int pad, int nbp, int n_mels) {
-  extern __shared__ double2 smem_exact[];
-  const int span_len = (kTileFrames - 1) * hop + n_fft;
-  double* span = reinterpret_cast<double*>(smem_exact);
-  float* ptile = reinterpret_cast<float*>(span + span_len);  // (kExactBins, kExactPStride)
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) { return make_double2(a.x + b.x, a.y + b.y); }
+__device__ __forceinline__ double2 csub(double2 a, double2 b) { return make_double2(a.x - b.x, a.y - b.y); }
+
+// One Stockham autosort stage of radix R (2 or 4) over an N-point signal
+// whose sub-transforms of length p are done: butterfly i (of N/R) takes
+// src[i + r·N/R], turns input r by exp(−2πi·r·k/(R·p)), k = i mod p, and
+// writes the R-point DFT to dst[(i − k)·R + k + r·p].
+template <int N, int R>
+__device__ __forceinline__ void fft_stage(const double2* __restrict__ src, double2* __restrict__ dst,
+                                          const double2* __restrict__ tw, int p) {
+  constexpr int T = N / R;
+  for (int i = threadIdx.x; i < T; i += kFftThreads) {
+    const int k = i & (p - 1);
+    const int step = k * (N / (R * p));  // twiddle index of input 1
+    double2 u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) u[r] = src[i + r * T];
+#pragma unroll
+    for (int r = 1; r < R; ++r) u[r] = cmul(u[r], __ldg(tw + r * step));
+    const int j = (i - k) * R + k;
+    if constexpr (R == 2) {
+      dst[j] = cadd(u[0], u[1]);
+      dst[j + p] = csub(u[0], u[1]);
+    } else {
+      const double2 a = cadd(u[0], u[2]), b = csub(u[0], u[2]);
+      const double2 c = cadd(u[1], u[3]), d = csub(u[1], u[3]);
+      dst[j] = cadd(a, c);
+      dst[j + p] = make_double2(b.x + d.y, b.y - d.x);  // b − i·d
+      dst[j + 2 * p] = csub(a, c);
+      dst[j + 3 * p] = make_double2(b.x - d.y, b.y + d.x);  // b + i·d
+    }
+  }
+}
+
+// One block per pair of frames (2·blockIdx.x, 2·blockIdx.x + 1) of clip
+// blockIdx.y. win: (N) float64 holding the float32 Hann values. tw: (N)
+// double2, tw[m] = exp(−2πi·m/N). mel: (n_mels) int4 {first bin, bin count,
+// offset into mel_w}; mel_w: float64 holding the float32 filterbank values of
+// each filter's nonzero bin range. out: (B, t_frames, n_mels).
+template <int LOG2N>
+__global__ void __launch_bounds__(kFftThreads)
+mel_power_fft_kernel(const float* __restrict__ audio, const double* __restrict__ win,
+                     const double2* __restrict__ tw, const int4* __restrict__ mel,
+                     const double* __restrict__ mel_w, float* __restrict__ out, int n, int t_frames, int hop,
+                     int pad, int n_mels) {
+  constexpr int N = 1 << LOG2N;
+  constexpr int K = N / 2 + 1;  // bins per frame
+  extern __shared__ double2 smem_fft[];
+  double2* cur = smem_fft;
+  double2* nxt = smem_fft + N;
 
   const int b = blockIdx.y;
-  const int f_base = blockIdx.x * kTileFrames;
+  const int f0 = 2 * blockIdx.x, f1 = f0 + 1;
+  const bool has1 = f1 < t_frames;
   const float* x = audio + static_cast<size_t>(b) * n;
-  const long first = static_cast<long>(f_base) * hop - pad;
-  for (int i = threadIdx.x; i < span_len; i += kExactThreads) {
-    const long s = first + i;
-    span[i] = (s >= 0 && s < n) ? static_cast<double>(x[s]) : 0.0;
+  const long s0 = static_cast<long>(f0) * hop - pad, s1 = s0 + hop;
+  // frame f0 windowed as the real part, frame f1 as the imaginary part
+  for (int i = threadIdx.x; i < N; i += kFftThreads) {
+    const double w = win[i];
+    const long a = s0 + i, c = s1 + i;
+    const double re = (a >= 0 && a < n) ? static_cast<double>(x[a]) * w : 0.0;
+    const double im = (has1 && c >= 0 && c < n) ? static_cast<double>(x[c]) * w : 0.0;
+    cur[i] = make_double2(re, im);
   }
   __syncthreads();
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int fw = warp * kExactWarpFrames;  // the warp's first frame in the tile
-  const double* wspan = span + fw * hop;
-
-  float mel[kExactWarpFrames][8];  // frames fw+i, mels lane + 32·m
-#pragma unroll
-  for (int i = 0; i < kExactWarpFrames; ++i)
-#pragma unroll
-    for (int m = 0; m < 8; ++m) mel[i][m] = 0.f;
-
-  const size_t w_row = static_cast<size_t>(nbp) * 2;  // double2 per 2 samples
-  for (int jb = 0; jb < nbp / kExactBins; ++jb) {
-    const int bin = jb * kExactBins + lane;
-    double re[kExactWarpFrames], im[kExactWarpFrames];
-#pragma unroll
-    for (int i = 0; i < kExactWarpFrames; ++i) re[i] = im[i] = 0.0;
-
-    const double2* wp = wx + static_cast<size_t>(bin) * 2;
-#pragma unroll 4
-    for (int k = 0; k < n_fft; k += 2) {
-      const double2 wc = __ldg(wp + (k / 2) * w_row);
-      const double2 ws = __ldg(wp + (k / 2) * w_row + 1);
-#pragma unroll
-      for (int i = 0; i < kExactWarpFrames; ++i) {
-        const double2 a = *reinterpret_cast<const double2*>(wspan + i * hop + k);  // broadcast
-        re[i] = fma(a.x, wc.x, re[i]);
-        re[i] = fma(a.y, wc.y, re[i]);
-        im[i] = fma(a.x, ws.x, im[i]);
-        im[i] = fma(a.y, ws.y, im[i]);
-      }
-    }
-
-    float* prow = ptile + lane * kExactPStride + fw;
-#pragma unroll
-    for (int i = 0; i < kExactWarpFrames; i += 4) {
-      float4 p;
-      p.x = static_cast<float>(re[i] * re[i] + im[i] * im[i]);
-      p.y = static_cast<float>(re[i + 1] * re[i + 1] + im[i + 1] * im[i + 1]);
-      p.z = static_cast<float>(re[i + 2] * re[i + 2] + im[i + 2] * im[i + 2]);
-      p.w = static_cast<float>(re[i + 3] * re[i + 3] + im[i + 3] * im[i + 3]);
-      *reinterpret_cast<float4*>(prow + i) = p;
-    }
-    __syncthreads();  // the whole power tile of this bin block is in shared memory
-
-    const float* fb = fbt + static_cast<size_t>(jb) * kExactBins * kMels + lane;
-#pragma unroll 2
-    for (int j = 0; j < kExactBins; ++j) {
-      const float4 p0 = *reinterpret_cast<const float4*>(ptile + j * kExactPStride + fw);
-      const float4 p1 = *reinterpret_cast<const float4*>(ptile + j * kExactPStride + fw + 4);
-      const float p[kExactWarpFrames] = {p0.x, p0.y, p0.z, p0.w, p1.x, p1.y, p1.z, p1.w};
-#pragma unroll
-      for (int m = 0; m < 8; ++m) {
-        const float f = __ldg(fb + j * kMels + 32 * m);
-#pragma unroll
-        for (int i = 0; i < kExactWarpFrames; ++i) mel[i][m] = fmaf(p[i], f, mel[i][m]);
-      }
-    }
-    __syncthreads();  // the power tile is read before the next bin block overwrites it
+  int p = 1;
+  if constexpr (LOG2N % 2 == 1) {
+    fft_stage<N, 2>(cur, nxt, tw, p);
+    p = 2;
+    double2* t = cur; cur = nxt; nxt = t;
+    __syncthreads();
+  }
+#pragma unroll 1
+  for (; p < N; p *= 4) {
+    fft_stage<N, 4>(cur, nxt, tw, p);
+    double2* t = cur; cur = nxt; nxt = t;
+    __syncthreads();
   }
 
-#pragma unroll
-  for (int i = 0; i < kExactWarpFrames; ++i) {
-    const int f = f_base + fw + i;
-    if (f >= t_frames) break;
-    float* o = out + (static_cast<size_t>(b) * t_frames + f) * n_mels;
-#pragma unroll
-    for (int m = 0; m < 8; ++m) {
-      const int col = lane + 32 * m;
-      if (col < n_mels) o[col] = mel[i][m];
-    }
+  // the two real frames' spectra from Z = FFT(a + i·b):
+  // A[k] = (Z[k] + conj Z[N−k]) / 2, B[k] = (Z[k] − conj Z[N−k]) / 2i
+  double* pw = reinterpret_cast<double*>(nxt);  // (2, K) power
+  for (int k = threadIdx.x; k < K; k += kFftThreads) {
+    const double2 z = cur[k], w = cur[(N - k) & (N - 1)];
+    const double ar = 0.5 * (z.x + w.x), ai = 0.5 * (z.y - w.y);
+    const double br = 0.5 * (z.y + w.y), bi = 0.5 * (w.x - z.x);
+    pw[k] = ar * ar + ai * ai;
+    pw[K + k] = br * br + bi * bi;
   }
+  __syncthreads();
+
+  float* o0 = out + (static_cast<size_t>(b) * t_frames + f0) * n_mels;
+  for (int m = threadIdx.x; m < n_mels; m += kFftThreads) {
+    const int4 r = mel[m];
+    double sa = 0.0, sb = 0.0;
+    for (int j = 0; j < r.y; ++j) {
+      const double w = __ldg(mel_w + r.z + j);
+      sa = fma(w, pw[r.x + j], sa);
+      sb = fma(w, pw[K + r.x + j], sb);
+    }
+    o0[m] = static_cast<float>(sa);
+    if (has1) o0[n_mels + m] = static_cast<float>(sb);
+  }
+}
+
+template <int LOG2N>
+cudaError_t launch_fft_n(const float* audio, const double* win, const double2* tw, const int4* mel,
+                         const double* mel_w, float* out, int batch, int n, int t_frames, int hop, int pad,
+                         int n_mels, cudaStream_t stream) {
+  const size_t smem = sizeof(double2) * 2 * (size_t{1} << LOG2N);
+  cudaError_t err = cudaFuncSetAttribute(mel_power_fft_kernel<LOG2N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t_frames + 1) / 2, batch);
+  mel_power_fft_kernel<LOG2N><<<grid, kFftThreads, smem, stream>>>(audio, win, tw, mel, mel_w, out, n, t_frames,
+                                                                  hop, pad, n_mels);
+  return cudaGetLastError();
 }
 
 // --------------------------------------------------------- high / fast rungs
@@ -355,28 +384,14 @@ cudaError_t launch_mma(const float* audio, const void* w, const void* fb, float*
   return cudaGetLastError();
 }
 
-cudaError_t launch_exact(const float* audio, const void* w, const void* fb, float* out, int batch, int n,
-                         int t_frames, int n_fft, int hop, int pad, int nbp, int n_mels, cudaStream_t stream) {
-  if (nbp % kExactBins != 0) return cudaErrorInvalidValue;
-  const size_t smem = sizeof(double) * ((kTileFrames - 1) * hop + n_fft) + sizeof(float) * kExactBins * kExactPStride;
-  cudaError_t err = cudaFuncSetAttribute(mel_power_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((t_frames + kTileFrames - 1) / kTileFrames, batch);
-  mel_power_exact_kernel<<<grid, kExactThreads, smem, stream>>>(
-      audio, static_cast<const double2*>(w), static_cast<const float*>(fb), out, n, t_frames, n_fft, hop, pad,
-      nbp, n_mels);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
-// rung: 0 = exact, 1 = high, 2 = fast. w and fb are the rung's constants as
-// laid out by ops/mel_kernel.py; nbp is the bin count they are padded to.
-// Returns a cudaError_t (0 = success) taken with cudaGetLastError() right
-// after the launch. Does not synchronise.
+// The high and fast rungs. rung: 1 = high, 2 = fast. w and fb are the rung's
+// constants as laid out by ops/mel_kernel.py; nbp is the bin count they are
+// padded to. Returns a cudaError_t (0 = success) taken with
+// cudaGetLastError() right after the launch. Does not synchronise.
 int mel_power(const float* audio, const void* w, const void* fb, float* out, int batch, int n, int t_frames,
               int n_fft, int hop, int pad, int nbp, int n_mels, int rung, void* stream) {
   if (batch <= 0 || batch > 65535 || n <= 0 || t_frames <= 0 || n_fft <= 0 || n_fft % 16 != 0 ||
@@ -384,9 +399,34 @@ int mel_power(const float* audio, const void* w, const void* fb, float* out, int
     return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
   switch (rung) {
-    case 0: return launch_exact(audio, w, fb, out, batch, n, t_frames, n_fft, hop, pad, nbp, n_mels, s);
     case 1: return launch_mma<2>(audio, w, fb, out, batch, n, t_frames, n_fft, hop, pad, nbp, n_mels, s);
     case 2: return launch_mma<1>(audio, w, fb, out, batch, n, t_frames, n_fft, hop, pad, nbp, n_mels, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The exact rung: n_fft a power of two from 64 to 4096. win (n_fft) float64,
+// tw (n_fft) double2, mel (n_mels) int4 and mel_w float64 as laid out by
+// ops/mel_kernel.py (fft_constants). Same return and stream rules as above.
+int mel_power_fft(const float* audio, const void* win, const void* tw, const void* mel, const void* mel_w,
+                  float* out, int batch, int n, int t_frames, int n_fft, int hop, int pad, int n_mels,
+                  void* stream) {
+  if (batch <= 0 || batch > 65535 || n <= 0 || t_frames <= 0 || hop <= 0 || pad < 0 || n_mels <= 0 ||
+      n_mels > kMels)
+    return cudaErrorInvalidValue;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* a = static_cast<const double*>(win);
+  const auto* t = static_cast<const double2*>(tw);
+  const auto* m = static_cast<const int4*>(mel);
+  const auto* mw = static_cast<const double*>(mel_w);
+  switch (n_fft) {
+    case 64: return launch_fft_n<6>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
+    case 128: return launch_fft_n<7>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
+    case 256: return launch_fft_n<8>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
+    case 512: return launch_fft_n<9>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
+    case 1024: return launch_fft_n<10>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
+    case 2048: return launch_fft_n<11>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
+    case 4096: return launch_fft_n<12>(audio, a, t, m, mw, out, batch, n, t_frames, hop, pad, n_mels, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,12 +2,15 @@
 
 Counterpart of ``spectrogramgenai_tpu/ops/attention.py``. :func:`fused_attention`
 is differentiable through a ``torch.autograd.Function`` that saves q, k and v
-(the JAX custom VJP's residuals) and recomputes P in the backward:
+(the JAX custom VJP's residuals) and, for bf16 inputs, the forward's row
+log-sum-exp and f32 output, and recomputes P in the backward:
 
   * forward: on a CUDA tensor the kernel of ``csrc/attention_fwd.cu``, on a
     CPU tensor :func:`attention_reference`;
   * backward (:func:`fused_attention_bwd`): on a CUDA tensor the kernels of
-    ``csrc/attention_bwd.cu``, on a CPU tensor :func:`attention_bwd_reference`.
+    ``csrc/attention_bwd.cu`` (tensor-core kernels for bf16, which take the
+    residuals; scalar ones for float32), on a CPU tensor
+    :func:`attention_bwd_reference`.
 
 Each plain version computes the same function in PyTorch; a CUDA tensor
 launches the kernel or raises. There is no other path. Under
@@ -26,13 +29,20 @@ from spectrogramgenai_tpu_torch.ops import _build
 SUPPORTED_HEAD_DIMS = (2, 4, 8, 16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 128  # query rows per kernel block: N must be a multiple
+LOG2E = 1.4426950408889634
 
 
-def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Plain version: the full (N, N) score matrix in float32."""
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool = False):
+    """Plain version: the full (N, N) score matrix in float32. With
+    ``residuals``, also the kernel's residuals: the row log-sum-exp of the
+    scores in the exp2 domain, log2 Σ_j 2^(s_j·log2 e), as (B, H, N) float32,
+    and the output before its cast, (B, H, N, D) float32."""
     d = q.shape[-1]
-    out = torch.softmax((q.float() @ k.float().mT) / math.sqrt(d), dim=-1) @ v.float()
-    return out.to(q.dtype)
+    s = (q.float() @ k.float().mT) / math.sqrt(d)
+    o32 = torch.softmax(s, dim=-1) @ v.float()
+    if residuals:
+        return o32.to(q.dtype), torch.logsumexp(s, dim=-1) * LOG2E, o32
+    return o32.to(q.dtype)
 
 
 def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -90,42 +100,71 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("q, k, v must be contiguous")
 
 
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool = False):
     if q.device.type == "cpu":
-        return attention_reference(q, k, v)
+        return attention_reference(q, k, v, residuals)
     b, h, n, d = q.shape
-    lib = _kernel("attention_fwd", 4)
+    lib = _kernel("attention_fwd", 6)
     out = torch.empty_like(q)
+    lse = o32 = None
+    if residuals:
+        lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
+        o32 = torch.empty(b, h, n, d, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                b * h, n, d, _DTYPE_CODES[q.dtype],
-                                torch.cuda.current_stream().cuda_stream)
+                                lse.data_ptr() if residuals else None, o32.data_ptr() if residuals else None,
+                                b * h, n, d, _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "attention_fwd", err)
     fused_attention.launches += 1
-    return out
+    return (out, lse, o32) if residuals else out
 
 
-def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        do: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def fused_attention_residuals(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(out, lse, o32): the forward with the residuals that the bf16 backward
+    takes — the row log-sum-exp in the exp2 domain, (B, H, N) float32, and
+    the output in float32. Counts in ``fused_attention.launches``."""
+    _check(q, k, v)
+    return _forward(q, k, v, residuals=True)
+
+
+def _check_residual(name: str, t: torch.Tensor, shape: tuple, device: torch.device) -> None:
+    if t.shape != shape or t.dtype != torch.float32 or t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 tensor of shape {shape} on {device}, "
+                         f"got {t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def fused_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor | None = None,
+                        o32: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of softmax(q·kᵀ/√d)·v for the output gradient ``do``, each
-    in the input dtype. ``fused_attention_bwd.launches`` counts the calls that
-    launch the kernels (two kernels per call: dQ with the row statistics, then
-    dK and dV)."""
+    in the input dtype. bf16 inputs on the card take the forward's residuals
+    (``fused_attention_residuals``) and raise without them; float32 inputs and
+    CPU tensors do not need them. ``fused_attention_bwd.launches`` counts the
+    calls that launch the kernels (two per call: dQ, then dK and dV)."""
     _check(q, k, v)
     if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device or not do.is_contiguous():
         raise ValueError(f"do must be a contiguous {q.dtype} tensor of shape {tuple(q.shape)} on "
                          f"{q.device}, got {do.dtype} {tuple(do.shape)} on {do.device}")
+    if (lse is None) != (o32 is None):
+        raise ValueError("lse and o32 are given together or not at all")
+    if lse is not None:
+        _check_residual("lse", lse, q.shape[:3], q.device)
+        _check_residual("o32", o32, q.shape, q.device)
     if q.device.type == "cpu":
         return attention_bwd_reference(q, k, v, do)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and lse is None:
+        raise ValueError("the bf16 backward kernels take the forward's residuals lse and o32 "
+                         "(fused_attention_residuals)")
     b, h, n, d = q.shape
-    lib = _kernel("attention_bwd", 8)
+    lib = _kernel("attention_bwd", 10)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    stats = torch.empty(3 * b * h * n, dtype=torch.float32, device=q.device)
+    scratch = torch.empty((1 if bf16 else 3) * b * h * n, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.attention_bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
-                                b * h, n, d, _DTYPE_CODES[q.dtype],
-                                torch.cuda.current_stream().cuda_stream)
+                                lse.data_ptr() if bf16 else None, o32.data_ptr() if bf16 else None,
+                                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(),
+                                b * h, n, d, _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, "attention_bwd", err)
     fused_attention_bwd.launches += 1
     return dq, dk, dv
@@ -137,14 +176,17 @@ fused_attention_bwd.launches = 0
 class _FusedAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v):
+        if q.dtype == torch.bfloat16:  # the bf16 backward reads P and c from these
+            out, lse, o32 = _forward(q, k, v, residuals=True)
+            ctx.save_for_backward(q, k, v, lse, o32)
+            return out
         ctx.save_for_backward(q, k, v)
         return _forward(q, k, v)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, do):
-        q, k, v = ctx.saved_tensors
-        return fused_attention_bwd(q, k, v, do.contiguous())
+        return fused_attention_bwd(*ctx.saved_tensors[:3], do.contiguous(), *ctx.saved_tensors[3:])
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

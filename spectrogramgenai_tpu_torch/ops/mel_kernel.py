@@ -1,4 +1,4 @@
-"""Fused wav → mel power spectrogram: framing, Hann-folded DFT, |·|², mel filterbank.
+"""Fused wav → mel power spectrogram: framing, Hann window, |DFT|², mel filterbank.
 
 Counterpart of ``spectrogramgenai_tpu/ops/mel_kernel.py``. On a CUDA tensor
 :func:`fused_mel_power` launches the hand-written kernels of
@@ -9,17 +9,20 @@ There is no other path.
 ``exact`` picks the precision rung, as the JAX package's does, and each
 rung meets that rung's error bound against the float64 oracle (PARITY.md):
 
-  True    the default (the JAX kernel's HIGHEST): float32 operands, the DFT
-          products exact and summed in float64 (float32 sums miss the
-          bound), the filterbank product in float32;
+  True    the default (the JAX kernel's HIGHEST): the float64 oracle's own
+          arithmetic — frames times the float32 window in float64, a
+          float64 FFT, power and filterbank sums in float64, one rounding
+          to float32 (the kernel: an FFT in shared memory, two frames per
+          complex transform, each mel summed over its nonzero bins);
   "high"  every product as three bf16 products of hi/lo splits,
           a_hi·b_hi + a_hi·b_lo + a_lo·b_hi (bf16_3x), f32 accumulation;
   False   the fastest (the JAX kernel's DEFAULT): every product as one
           bf16 product of operands rounded to bf16, f32 accumulation.
 
 The plain version rounds its operands exactly as the kernels do, so kernel
-and plain version differ only by the order of summation, and each rung's
-error against the float64 oracle can be tested on the CPU.
+and plain version differ only by the order of summation (for the exact
+rung: an FFT's order against ``torch.fft.rfft``'s, both in float64), and
+each rung's error against the float64 oracle can be tested on the CPU.
 """
 
 from __future__ import annotations
@@ -39,8 +42,9 @@ from spectrogramgenai_tpu_torch.audio.spectrogram import (
 )
 from spectrogramgenai_tpu_torch.ops import _build
 
-_RUNG_CODES = {"exact": 0, "high": 1, "fast": 2}  # the kernel's `rung` argument
-MAX_MELS = 256  # width of the kernel's mel accumulator
+_RUNG_CODES = {"high": 1, "fast": 2}  # mel_power's `rung` argument; "exact" is mel_power_fft
+MAX_MELS = 256  # width of the kernels' mel accumulator
+FFT_SIZES = tuple(2**e for e in range(6, 13))  # the exact rung's n_fft: 64 … 4096
 
 
 def rung_name(exact) -> str:
@@ -67,8 +71,6 @@ def _bf16(a: torch.Tensor) -> torch.Tensor:
 
 def _dft_product(frames: torch.Tensor, w: torch.Tensor, rung: str) -> torch.Tensor:
     """frames @ w, with the operands rounded and the products taken as the rung's kernel does."""
-    if rung == "exact":  # float32 values, float64 products and sums
-        return frames.double() @ w.double()
     if rung == "fast":
         return _bf16(frames) @ _bf16(w)
     fh, fl = (t.float() for t in split_bf16(frames))
@@ -78,8 +80,6 @@ def _dft_product(frames: torch.Tensor, w: torch.Tensor, rung: str) -> torch.Tens
 
 def _mel_product(power: torch.Tensor, fb_t: torch.Tensor, rung: str) -> torch.Tensor:
     """power @ fbᵀ in float32, rounded as the rung's kernel rounds it."""
-    if rung == "exact":
-        return power @ fb_t
     if rung == "fast":
         return _bf16(power) @ _bf16(fb_t)
     ph, pl = (t.float() for t in split_bf16(power))
@@ -99,14 +99,21 @@ def _check_cfg(cfg: SpectrogramConfig) -> None:
 
 def mel_power_reference(audio: torch.Tensor, cfg: SpectrogramConfig, exact=True) -> torch.Tensor:
     """Plain version: (B, N) → (B, T, n_mels) float32 mel power, by framing
-    with ``unfold``, the window-folded DFT and the filterbank as matmuls."""
+    with ``unfold``; the exact rung then takes ``torch.fft.rfft`` and the
+    filterbank product in float64, the others the window-folded DFT and the
+    filterbank as matmuls rounded as their kernel rounds them."""
     rung = rung_name(exact)
     _check_cfg(cfg)
     frames = frame_signal(audio.float(), cfg)  # (B, T, n_fft)
+    window, fb = constants(cfg)
+    if rung == "exact":
+        spec = torch.fft.rfft(frames.double() * torch.from_numpy(window).to(audio.device).double(), dim=-1)
+        power = spec.real.square() + spec.imag.square()
+        return (power @ torch.from_numpy(fb).to(audio.device).double().T).float()
     wc, ws = (torch.from_numpy(w).to(audio.device) for w in _dft(cfg))
     re, im = _dft_product(frames, wc, rung), _dft_product(frames, ws, rung)
     power = (re * re + im * im).float()
-    fb_t = torch.from_numpy(np.ascontiguousarray(constants(cfg)[1].T)).to(audio.device)
+    fb_t = torch.from_numpy(np.ascontiguousarray(fb.T)).to(audio.device)
     return _mel_product(power, fb_t, rung)
 
 
@@ -127,18 +134,28 @@ def _parts(a: np.ndarray, rung: str) -> np.ndarray:
     return np.stack([p.view(torch.int16).numpy().view(np.uint16) for p in parts])
 
 
-def exact_layout(wc: np.ndarray, ws: np.ndarray, fb_t: np.ndarray):
-    """Exact rung: W as (n_fft/2, nbp, 2, 2) float64 holding the float32 values,
-    [k/2][bin][m] = (W_m[k][bin], W_m[k+1][bin]) for m = Wc, Ws; fbᵀ as
-    (nbp, 256) float32. Bins are zero-padded to nbp, a multiple of 32."""
-    n_fft, n_bins = wc.shape
-    nbp = _round_up(n_bins, 32)
-    w = np.zeros((2, n_fft, nbp), np.float64)
-    w[0, :, :n_bins], w[1, :, :n_bins] = wc, ws
-    w = np.ascontiguousarray(w.reshape(2, n_fft // 2, 2, nbp).transpose(1, 3, 0, 2))
-    fb = np.zeros((nbp, MAX_MELS), np.float32)
-    fb[:n_bins, : fb_t.shape[1]] = fb_t
-    return w, fb, nbp
+def fft_constants(cfg: SpectrogramConfig):
+    """Exact rung (mel_power_fft_kernel): the window as (n_fft,) float64
+    holding the float32 values; the twiddles as (n_fft, 2) float64,
+    exp(−2πi·m/n_fft) from np.exp; per mel filter (first bin, bin count,
+    offset into the weights, 0) as (n_mels, 4) int32, the range running from
+    the filter's first to its last nonzero bin (count 0 for an empty
+    filter); and the weights of every range, back to back, as float64
+    holding the float32 filterbank values."""
+    window, fb = constants(cfg)
+    n = cfg.n_fft
+    tw = np.exp(-2j * np.pi * np.arange(n) / n)
+    ranges = np.zeros((fb.shape[0], 4), np.int32)
+    weights = []
+    offset = 0
+    for m, row in enumerate(fb):
+        nz = np.flatnonzero(row)
+        first, count = (int(nz[0]), int(nz[-1] - nz[0] + 1)) if len(nz) else (0, 0)
+        ranges[m, :3] = first, count, offset
+        weights.append(row[first:first + count])
+        offset += count
+    return (window.astype(np.float64), np.stack([tw.real, tw.imag], -1), ranges,
+            np.concatenate(weights).astype(np.float64))
 
 
 def mma_layout(wc: np.ndarray, ws: np.ndarray, fb_t: np.ndarray, rung: str):
@@ -192,16 +209,15 @@ def mma_layout(wc: np.ndarray, ws: np.ndarray, fb_t: np.ndarray, rung: str):
 
 
 @functools.lru_cache(maxsize=8)
-def _kernel_constants(cfg: SpectrogramConfig, device: torch.device, rung: str):
-    wc, ws = _dft(cfg)
-    fb_t = np.ascontiguousarray(constants(cfg)[1].T)
+def _kernel_constants(cfg: SpectrogramConfig, device: torch.device, rung: str) -> tuple:
+    """The rung's constants on the device: fft_constants for "exact", else
+    (W, fbᵀ, nbp) of mma_layout."""
     if rung == "exact":
-        w, fb, nbp = exact_layout(wc, ws, fb_t)
-    else:
-        w, fb, nbp = mma_layout(wc, ws, fb_t, rung)
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in fft_constants(cfg))
+    wc, ws = _dft(cfg)
+    w, fb, nbp = mma_layout(wc, ws, np.ascontiguousarray(constants(cfg)[1].T), rung)
     # uint32 words travel as int32 (torch has no uint32 arithmetic, and needs none here)
-    w, fb = (torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a).to(device) for a in (w, fb))
-    return w, fb, nbp
+    return torch.from_numpy(w.view(np.int32)).to(device), torch.from_numpy(fb.view(np.int32)).to(device), nbp
 
 
 def _kernel() -> ctypes.CDLL:
@@ -210,6 +226,8 @@ def _kernel() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.mel_power.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         lib.mel_power.restype = ctypes.c_int
+        lib.mel_power_fft.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.mel_power_fft.restype = ctypes.c_int
         lib.mel_power_error_string.argtypes = [ctypes.c_int]
         lib.mel_power_error_string.restype = ctypes.c_char_p
     return lib
@@ -238,18 +256,26 @@ def fused_mel_power(audio: torch.Tensor, cfg: SpectrogramConfig, exact=True) -> 
     _check(audio, cfg)
     if audio.device.type == "cpu":
         return mel_power_reference(audio, cfg, exact)
-    if cfg.n_fft % 64 or cfg.hop_length % 16 or cfg.n_mels > MAX_MELS:
-        raise ValueError(f"the mel kernels take n_fft % 64 == 0, hop % 16 == 0 and n_mels ≤ {MAX_MELS}; "
+    fft_ok = cfg.n_fft in FFT_SIZES if rung == "exact" else cfg.n_fft % 64 == 0
+    if not fft_ok or cfg.hop_length % 16 or cfg.n_mels > MAX_MELS:
+        sizes = "a power of two from 64 to 4096" if rung == "exact" else "a multiple of 64"
+        raise ValueError(f"the {rung} mel kernel takes n_fft {sizes}, hop % 16 == 0 and n_mels ≤ {MAX_MELS}; "
                          f"got n_fft {cfg.n_fft}, hop {cfg.hop_length}, n_mels {cfg.n_mels}")
     b, n = audio.shape
     t = cfg.frames_for(n)
+    pad = cfg.n_fft // 2 if cfg.center else 0
     lib = _kernel()
-    w, fb, nbp = _kernel_constants(cfg, audio.device, rung)
+    consts = _kernel_constants(cfg, audio.device, rung)
     out = torch.empty(b, t, cfg.n_mels, dtype=torch.float32, device=audio.device)
     with torch.cuda.device(audio.device):
-        err = lib.mel_power(audio.data_ptr(), w.data_ptr(), fb.data_ptr(), out.data_ptr(), b, n, t,
-                            cfg.n_fft, cfg.hop_length, cfg.n_fft // 2 if cfg.center else 0, nbp,
-                            cfg.n_mels, _RUNG_CODES[rung], torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if rung == "exact":
+            err = lib.mel_power_fft(audio.data_ptr(), *(c.data_ptr() for c in consts), out.data_ptr(), b, n, t,
+                                    cfg.n_fft, cfg.hop_length, pad, cfg.n_mels, stream)
+        else:
+            w, fb, nbp = consts
+            err = lib.mel_power(audio.data_ptr(), w.data_ptr(), fb.data_ptr(), out.data_ptr(), b, n, t,
+                                cfg.n_fft, cfg.hop_length, pad, nbp, cfg.n_mels, _RUNG_CODES[rung], stream)
     if err != 0:
         msg = lib.mel_power_error_string(err).decode()
         raise RuntimeError(f"mel_power ({rung}) launch failed: {msg} (cudaError {err})")

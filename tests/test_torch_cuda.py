@@ -23,6 +23,7 @@ from spectrogramgenai_tpu_torch.ops.attention import (  # noqa: E402
     attention_reference,
     fused_attention,
     fused_attention_bwd,
+    fused_attention_residuals,
 )
 from spectrogramgenai_tpu_torch.ops.mel_kernel import (  # noqa: E402
     fused_logmel,
@@ -141,8 +142,10 @@ def _exact_bwd(q, k, v, do):
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_backward_kernel_matches_plain_version(gen, shape, dtype, tol):
     q, k, v, do = (torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4))
+    # bf16: the tensor-core kernels, given the forward's residuals; f32: the scalar kernels
+    res = fused_attention_residuals(q, k, v)[1:] if dtype == torch.bfloat16 else ()
     before = fused_attention_bwd.launches
-    got = fused_attention_bwd(q, k, v, do)
+    got = fused_attention_bwd(q, k, v, do, *res)
     torch.cuda.synchronize()
     assert fused_attention_bwd.launches == before + 1
     want = attention_bwd_reference(q, k, v, do)
@@ -162,6 +165,33 @@ def test_autograd_through_the_kernels(gen):
     assert (fused_attention.launches, fused_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
     for g, w in zip((q.grad, k.grad, v.grad), fused_attention_bwd(q.detach(), k.detach(), v.detach(), do)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_forward_residuals_match_plain_version(gen):
+    q, k, v = _qkv(gen, (2, 4, 1024, 16), torch.bfloat16)
+    before = fused_attention.launches
+    out, lse, o32 = fused_attention_residuals(q, k, v)
+    assert fused_attention.launches == before + 1
+    _, lse_p, o32_p = attention_reference(q, k, v, residuals=True)
+    assert (lse - lse_p).abs().max().item() <= 1e-4 and (o32 - o32_p).abs().max().item() <= 1e-4
+    assert torch.equal(o32.bfloat16(), out)
+    # the score is rounded as the backward rounds it, so the output may differ
+    # from the serving kernel's in its last bf16 bit: held to the plain version
+    assert (out.float() - attention_reference(q.float(), k.float(), v.float())).abs().max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 1024, 32), (2, 4, 1024, 16), (1, 4, 4096, 16)])  # sa_0, sa_4, sa_5
+def test_bf16_autograd_runs_the_tensor_core_backward(gen, shape):
+    q, k, v = (x.requires_grad_() for x in _qkv(gen, shape, torch.bfloat16))
+    do = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+    before = (fused_attention.launches, fused_attention_bwd.launches)
+    fused_attention(q, k, v).backward(do)
+    assert (fused_attention.launches, fused_attention_bwd.launches) == (before[0] + 1, before[1] + 1)
+    exact = _exact_bwd(q.detach(), k.detach(), v.detach(), do)
+    for g, e in zip((q.grad, k.grad, v.grad), exact):
+        assert g.dtype == torch.bfloat16 and _row_rel_err(g, e) <= 5e-3  # chip_smoke.py's BWD_TOL
+    with pytest.raises(ValueError, match="residuals"):
+        fused_attention_bwd(q.detach(), k.detach(), v.detach(), do)
 
 
 def test_backward_large_logits_and_underflow(gen):
@@ -204,6 +234,21 @@ def test_mel_kernel_matches_plain_version_and_oracle(gen, exact, sr, batch, n):
         assert err[3::4].max() <= typical, err
 
 
+@pytest.mark.parametrize("n_fft, hop, n_mels", [(64, 16, 16), (128, 32, 32), (256, 64, 64), (512, 128, 128),
+                                              (1024, 256, 128), (2048, 384, 256), (4096, 384, 256)])
+def test_fft_kernel_matches_plain_version_and_oracle(gen, n_fft, hop, n_mels):
+    cfg = SpectrogramConfig(n_fft=n_fft, hop_length=hop, n_mels=n_mels)
+    clips = stress_audio(cfg, 8)[:, :100_001]  # odd length: the last pair holds one frame
+    audio = torch.from_numpy(np.ascontiguousarray(clips)).cuda()
+    before = fused_mel_power.launches
+    got = fused_mel_power(audio, cfg)
+    torch.cuda.synchronize()
+    assert fused_mel_power.launches == before + 1
+    assert mel_rel_err(got, mel_power_reference(audio, cfg)) <= MEL_TOL["exact"]
+    err = np.abs(fused_logmel(audio, cfg).cpu().numpy() - np.stack([reference_logmel_np(c, cfg) for c in clips]))
+    assert err.max() <= RUNG_BOUNDS[True][1]
+
+
 def test_mel_wrapper_rejects_what_the_kernel_does_not_take(gen):
     cfg = SpectrogramConfig()
     audio = torch.randn(2, 30000, device="cuda", generator=gen)
@@ -215,6 +260,8 @@ def test_mel_wrapper_rejects_what_the_kernel_does_not_take(gen):
         fused_mel_power(torch.zeros(2, 30000, device="meta"), cfg)
     with pytest.raises(ValueError, match="hop"):
         fused_mel_power(audio, SpectrogramConfig(hop_length=100))
+    with pytest.raises(ValueError, match="power of two"):
+        fused_mel_power(audio, SpectrogramConfig(n_fft=1536))
     before = fused_mel_power.launches
     fused_mel_power(audio, cfg)
     fused_mel_power(audio, cfg, exact=False)

@@ -24,7 +24,8 @@ from spectrogramgenai_tpu.ops import mel_kernel as jkernel  # noqa: E402
 from spectrogramgenai_tpu_torch.audio import mel as tmel  # noqa: E402
 from spectrogramgenai_tpu_torch.audio import spectrogram as tspec  # noqa: E402
 from spectrogramgenai_tpu_torch.ops import mel_kernel as tkernel  # noqa: E402
-from torch_mel_helpers import RUNG_BOUNDS, exact_kernel, mel_rel_err, mma_kernel, stress_audio  # noqa: E402
+from torch_mel_helpers import RUNG_BOUNDS, fft_kernel, mel_rel_err, mma_kernel, stress_audio  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: E402, F401
 
 
 def _audio(sr: int, n: int, b: int = 2, seed: int = 0) -> np.ndarray:
@@ -172,6 +173,22 @@ def test_rung_plain_version_meets_ladder_bounds(exact):
     assert err.max() <= adversarial, err
 
 
+@pytest.mark.parametrize("n_fft, hop, n_mels", [(64, 16, 16), (512, 128, 64), (4096, 384, 256)])
+def test_exact_plain_version_is_the_float64_oracle_rounded_once(n_fft, hop, n_mels):
+    # the exact rung's plain version computes the oracle's mel power (float64
+    # frames, window, FFT and filterbank) and rounds it once to float32
+    cfg = tspec.SpectrogramConfig(n_fft=n_fft, hop_length=hop, n_mels=n_mels)
+    audio = stress_audio(cfg, 4, seed=4)[:, :30_001]
+    window, fb = tspec.constants(cfg)
+    x = np.pad(audio.astype(np.float64), ((0, 0), (n_fft // 2, n_fft // 2)))
+    starts = np.arange(cfg.frames_for(audio.shape[1])) * hop
+    frames = x[:, starts[:, None] + np.arange(n_fft)] * window.astype(np.float64)
+    want = (np.abs(np.fft.rfft(frames, axis=-1)) ** 2 @ fb.astype(np.float64).T).astype(np.float32)
+    got = tkernel.mel_power_reference(_t(audio), cfg).numpy()
+    assert got.shape == want.shape
+    assert mel_rel_err(_t(got), _t(want)) <= 2.4e-7  # float32's half ulp and float64 noise
+
+
 def test_second_sample_rate_and_odd_length_meet_exact_bound():
     cfg = tspec.SpectrogramConfig(sample_rate=48000)
     audio = stress_audio(cfg, 4, seed=3)[:, :271_111]  # odd length, T = 707
@@ -194,14 +211,15 @@ EMU_CFGS = [  # small shapes: a partial second tile, a hop that does not divide 
 @pytest.mark.parametrize("exact, tol", [(True, 1e-6), ("high", 3e-5), (False, 1e-3)])
 def test_kernel_mirror_matches_plain_version(cfg, n, exact, tol):
     # per element, down to 80 dB under each clip's max. The mirrors sum in
-    # float64, the plain version in float32 (float64 for the exact rung's
-    # DFT): 1.8e-7 exact, 1.4e-5 high; "fast" rounds the power to bf16, which
-    # can flip on that difference (2⁻⁸ of one term)
+    # float64; the plain version sums in float64 for the exact rung (the
+    # FFT mirror and rfft then differ by float64 rounding only) and in
+    # float32 for the others: 1.4e-5 high; "fast" rounds the power to bf16,
+    # which can flip on that difference (2⁻⁸ of one term)
     rng = np.random.default_rng(8)
     audio = (rng.standard_normal((2, n)) * np.exp(rng.uniform(-3, 0, (2, 1)))).astype(np.float32)
     want = tkernel.mel_power_reference(_t(audio), cfg, exact).numpy()
     rung = tkernel.rung_name(exact)
-    got = exact_kernel(audio, cfg) if rung == "exact" else mma_kernel(audio, cfg, rung)
+    got = fft_kernel(audio, cfg) if rung == "exact" else mma_kernel(audio, cfg, rung)
     assert got.shape == want.shape
     assert mel_rel_err(torch.from_numpy(got), torch.from_numpy(want)) <= tol
 
@@ -210,10 +228,17 @@ def test_kernel_constants_are_padded_with_zeros():
     cfg = tspec.SpectrogramConfig()
     wc, ws = tkernel._dft(cfg)
     fb_t = np.ascontiguousarray(tspec.constants(cfg)[1].T)
-    w, fb, nbp = tkernel.exact_layout(wc, ws, fb_t)
-    assert w.shape == (1024, 1056, 2, 2) and nbp == 1056 and fb.shape == (1056, 256)
-    assert np.array_equal(w[:, :1025, 0].reshape(1024, 1025, 2).transpose(0, 2, 1).reshape(2048, 1025), wc)
-    assert not w[:, 1025:].any() and not fb[1025:].any()
+    # the FFT kernel's: float64 twiddles, and mel ranges that rebuild the dense filterbank exactly
+    win, tw, ranges, weights = tkernel.fft_constants(cfg)
+    assert tw.dtype == win.dtype == weights.dtype == np.float64 and tw.shape == (2048, 2)
+    assert np.array_equal(tw[:, 0] + 1j * tw[:, 1], np.exp(-2j * np.pi * np.arange(2048) / 2048))
+    assert np.array_equal(win, tspec.constants(cfg)[0].astype(np.float64))
+    assert ranges.shape == (256, 4) and ranges.dtype == np.int32 and ranges[:, 1].sum() == len(weights)
+    dense = np.zeros((256, 1025))
+    for m, (first, count, offset, _) in enumerate(ranges):
+        dense[m, first:first + count] = weights[offset:offset + count]
+    assert np.array_equal(dense, fb_t.T.astype(np.float64))
+    assert ranges[:, 1].max() < 64  # every filter covers a short bin range
     for rung, parts in (("high", 2), ("fast", 1)):
         w, fb, nbp = tkernel.mma_layout(wc, ws, fb_t, rung)
         assert nbp == 1040 and w.shape == (65, 128, parts, 2, 32, 4) and fb.shape == (65, 16, parts, 32, 4)

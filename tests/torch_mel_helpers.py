@@ -1,10 +1,12 @@
 """Helpers of the mel tests and chip_smoke.py: the stress clips, the rung
 bounds and tolerances, and NumPy mirrors of the CUDA mel kernels (``csrc/mel_power.cu``). Imports no JAX.
 
-Each function follows its kernel's index arithmetic line by line: the shared
-memory span of a block, the per-lane loads from the host-packed constants,
-and the register layouts that PTX defines for ``mma.sync.m16n8k16`` (bf16 in,
-f32 out). The CUDA code cannot run without a card; these mirrors let the CPU
+Each function follows its kernel's index arithmetic line by line: for the
+FFT kernel the frame pairs, the Stockham stages' butterfly and twiddle
+indices, the split of the two frames' spectra and the mel ranges; for the
+mma kernels the shared memory span of a block, the per-lane loads from the
+host-packed constants, and the register layouts that PTX defines for
+``mma.sync.m16n8k16`` (bf16 in, f32 out). The CUDA code cannot run without a card; these mirrors let the CPU
 tests check that the packed operand layouts of ``ops/mel_kernel.py`` and the
 kernels' offsets agree, by computing the same mel power as the plain version.
 Sums are taken in float64, so a mirror differs from the plain version only
@@ -199,50 +201,49 @@ def mma_kernel(audio: np.ndarray, cfg: SpectrogramConfig, rung: str) -> np.ndarr
     return out.astype(np.float32)
 
 
-def exact_kernel(audio: np.ndarray, cfg: SpectrogramConfig) -> np.ndarray:
-    """mel_power_exact_kernel."""
-    wc, ws = mk._dft(cfg)
-    w, fbt, nbp = mk.exact_layout(wc, ws, np.ascontiguousarray(constants(cfg)[1].T))
-    wx = w.reshape(-1, 2)  # double2 array
-    fbt = fbt.reshape(-1)
+def fft_kernel(audio: np.ndarray, cfg: SpectrogramConfig) -> np.ndarray:
+    """mel_power_fft_kernel<LOG2N>, all pairs of frames of a clip at once."""
+    win, tw, ranges, mel_w = mk.fft_constants(cfg)
+    tw = tw[:, 0] + 1j * tw[:, 1]
     bsz, n = audio.shape
     n_fft, hop = cfg.n_fft, cfg.hop_length
     pad = n_fft // 2 if cfg.center else 0
     t_frames = cfg.frames_for(n)
-    span_len = (TILE - 1) * hop + n_fft
-    lane = np.arange(32)
-    w_row = nbp * 2
+    k_bins = n_fft // 2 + 1
+    log2n = n_fft.bit_length() - 1
     out = np.zeros((bsz, t_frames, cfg.n_mels), np.float32)
+    pairs = np.arange((t_frames + 1) // 2)[:, None]
+    i = np.arange(n_fft)[None]
+    f0, f1 = 2 * pairs, 2 * pairs + 1
     for b in range(bsz):
-        for tile in range(-(-t_frames // TILE)):
-            f_base = tile * TILE
-            s = f_base * hop + np.arange(span_len) - pad
-            span = np.where((s >= 0) & (s < n), audio[b, np.clip(s, 0, n - 1)], 0.0).astype(np.float64)
-            ptile = np.zeros((32, TILE), np.float32)
-            mel = np.zeros((8, TILE // 8, 8, 32), np.float32)  # (warp, frame i, m, lane)
-            for jb in range(nbp // 32):
-                wp = (jb * 32 + lane) * 2
-                re, im = np.zeros((8, 8, 32)), np.zeros((8, 8, 32))  # (warp, i, lane)
-                for k in range(0, n_fft, 2):
-                    wcv, wsv = wx[wp + (k // 2) * w_row], wx[wp + (k // 2) * w_row + 1]  # (32, 2)
-                    for warp in range(8):
-                        for i in range(8):
-                            a = span[(warp * 8 + i) * hop + k: (warp * 8 + i) * hop + k + 2]
-                            re[warp, i] += a[0] * wcv[:, 0] + a[1] * wcv[:, 1]
-                            im[warp, i] += a[0] * wsv[:, 0] + a[1] * wsv[:, 1]
-                for warp in range(8):
-                    ptile[:, warp * 8: warp * 8 + 8] = (re[warp] ** 2 + im[warp] ** 2).T
-                for warp in range(8):
-                    for j in range(32):
-                        for m in range(8):
-                            f = fbt[(jb * 32 + j) * MELS + lane + 32 * m]
-                            mel[warp, :, m] += ptile[j, warp * 8: warp * 8 + 8, None] * f[None]
-            for warp in range(8):
-                for i in range(8):
-                    f = f_base + warp * 8 + i
-                    if f >= t_frames:
-                        continue
-                    for m in range(8):
-                        col = lane + 32 * m
-                        out[b, f, col[col < cfg.n_mels]] = mel[warp, i, m][col < cfg.n_mels]
+        x = audio[b].astype(np.float64)
+        a, c = f0 * hop - pad + i, f1 * hop - pad + i
+        re = np.where((a >= 0) & (a < n), x[np.clip(a, 0, n - 1)], 0.0) * win
+        im = np.where((f1 < t_frames) & (c >= 0) & (c < n), x[np.clip(c, 0, n - 1)], 0.0) * win
+        cur = re + 1j * im  # (pairs, n_fft)
+        p = 1
+        for radix in ([2] if log2n % 2 else []) + [4] * (log2n // 2):
+            t = n_fft // radix
+            bi = np.arange(t)
+            k = bi & (p - 1)
+            step = k * (n_fft // (radix * p))
+            u = [cur[:, bi + r * t] * tw[r * step] for r in range(radix)]
+            j = (bi - k) * radix + k
+            nxt = np.empty_like(cur)
+            if radix == 2:
+                nxt[:, j], nxt[:, j + p] = u[0] + u[1], u[0] - u[1]
+            else:
+                a_, b_ = u[0] + u[2], u[0] - u[2]
+                c_, d_ = u[1] + u[3], u[1] - u[3]
+                nxt[:, j], nxt[:, j + 2 * p] = a_ + c_, a_ - c_
+                nxt[:, j + p], nxt[:, j + 3 * p] = b_ - 1j * d_, b_ + 1j * d_
+            cur, p = nxt, p * radix
+        kk = np.arange(k_bins)
+        z, w = cur[:, kk], cur[:, (n_fft - kk) & (n_fft - 1)]
+        spec_a, spec_b = 0.5 * (z + np.conj(w)), 0.5 * (z - np.conj(w)) / 1j
+        for power, f in ((np.abs(spec_a) ** 2, f0[:, 0]), (np.abs(spec_b) ** 2, f1[:, 0])):
+            ok = f < t_frames
+            for m, (first, count, offset, _) in enumerate(ranges):
+                mel = power[:, first:first + count] @ mel_w[offset:offset + count]
+                out[b, f[ok], m] = mel[ok]
     return out
