@@ -11,15 +11,16 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 csrc/mel_power.cu with nvcc from this checkout, one nvcc per
                 source, started together; prints each kernel's registers and
                 spills.
-  3. kernel   — the attention kernel against its plain PyTorch version at the
-                UNet's three fused sites (B·H = 216 = serve batch 27 × CFG 2
-                × 4 heads): f32 ≤ 1e-4 with TF32 off, bf16 ≤ 1e-2 against the
-                f32 upcast of the same inputs, the residuals that training
-                saves (row log-sum-exp, f32 output) against the plain
-                version's, a large-logit row, and the small head dims;
-                kernel (with and without residuals), plain and
-                scaled_dot_product_attention times (CUDA events, median) and
-                the bound.
+  3. kernel   — the attention kernels against their plain PyTorch version at
+                the UNet's three fused sites (B·H = 216 = serve batch 27 × CFG
+                2 × 4 heads): f32 (the scalar kernel) ≤ 1e-4 with TF32 off,
+                bf16 (the tensor-core kernel, which must take every bf16
+                site) ≤ 1e-2 against the f32 upcast of the same inputs, the
+                residuals that training saves (row log-sum-exp, f32 output)
+                against the plain version's, a large-logit row, and the
+                other head dims 2, 4, 8, 64; kernel (with and without
+                residuals), plain and scaled_dot_product_attention times
+                (CUDA events, median), the bound and the exponentials' floor.
   4. mel      — each mel kernel rung (exact, high, fast) against its plain
                 version (per element, down to 80 dB under each clip's max)
                 and the float64 oracle on the stress clips of
@@ -34,7 +35,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 random weights, saved as checkpoints and served through
                 cli.serve.run (DPM-Solver++ 20 steps, serve batch 27);
                 concurrent POST /generate requests for 32 images, /healthz and
-                /stats; every batch must have gone through the kernel.
+                /stats; every batch must have gone through the tensor-core
+                attention kernel. One served batch's device time by kernel
+                (torch.profiler).
   6. gen_specs — a synthetic corpus (32 recordings of 60 s at 22,050 Hz and 2
                 at 48 kHz, 8 detections each) through cli.gen_specs.run on the
                 card, once per rung: every PNG written and 256×256×3, the
@@ -58,7 +61,7 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 1.0, 64×64×4 latent, bf16, latent cache, batch 32) for 2
                 epochs of 8 steps, then again with 3 epochs, resuming; every
                 loss finite, params changed, both attention kernels launched
-                at 3 sites per step, the checkpoint served through
+                at 3 sites per step (the forward on its tensor-core route), the checkpoint served through
                 cli.common.load_task (one dpmpp-20 batch). One full-width step
                 through the kernels against the plain attention (same t,
                 noise, keep); images/s, s/step, a step's split (CUDA events),
@@ -193,7 +196,7 @@ def phase_kernel(torch, attn) -> dict:
     def rand(n, d, dtype):
         return [torch.randn(1, BH, n, d, device="cuda", generator=gen).to(dtype) for _ in range(3)]
 
-    max_err, ms, res_ms, plain_ms, library_ms, flops_ms, bytes_ms = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    max_err, ms, res_ms, plain_ms, library_ms, flops_ms, bytes_ms, exp_ms = (0.0,) * 8
     for name, n, d in SA_SITES:
         q, k, v = rand(n, d, torch.float32)
         err32 = (fused(q, k, v) - ref(q, k, v)).abs().max().item()
@@ -201,8 +204,10 @@ def phase_kernel(torch, attn) -> dict:
         check(err32 <= 1e-4, f"{name} f32 max abs err {err32} <= 1e-4")
 
         qb, kb, vb = (t.bfloat16() for t in (q, k, v))
+        mma_before = fused.mma_launches
         out = fused(qb, kb, vb)
         check(out.dtype == torch.bfloat16, "bf16 output dtype")
+        check(fused.mma_launches == mma_before + 1, f"{name} bf16 ran the tensor-core kernel")
         err16 = (out.float() - ref(qb.float(), kb.float(), vb.float())).abs().max().item()
         check(err16 <= 1e-2, f"{name} bf16 max abs err {err16} <= 1e-2")
         # the residuals of training (bf16): the row log-sum-exp to f32 rounding
@@ -241,16 +246,18 @@ def phase_kernel(torch, attn) -> dict:
         t_lib = cuda_ms(lambda: sdpa(qb, kb, vb))
         # least time for the bf16 work: q·kᵀ and p·v on the tensor cores, or
         # q, k, v read and o written once; the exponentials (MUFU, 16 per
-        # clock per SM) are a third bound, printed beside
+        # clock per SM), one per pair, are the floor beside them
         flops, nbytes, exps = 4 * BH * n * n * d, 4 * BH * n * d * 2, BH * n * n
         t_flops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+        t_exp = exps / H100_EXP_PER_S * 1e3
         log(f"kernel {name} (B·H={BH}, N={n}, d={d}): err f32 {err32:.3g} bf16 {err16:.3g} "
             f"residuals lse {err_lse:.3g} o32 {err_o32:.3g} "
             f"large-logit vs f64: f32 {errl:.3g} (plain f32 {errl_plain:.3g}), bf16(rel) {errlb:.3g} | "
             f"bf16 kernel {t_k:.3f} ms (with residuals {t_res:.3f} ms), plain {t_p:.3f} ms, "
             f"scaled_dot_product_attention {t_lib:.3f} ms | "
             f"f32 kernel {t_k32:.3f} ms, plain {t_p32:.3f} ms | bound {max(t_flops, t_bytes):.4f} ms "
-            f"(tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}; {exps:.3g} exponentials)")
+            f"(tensor-core flops {t_flops:.4f}, bytes {t_bytes:.4f}); exponentials' floor {t_exp:.4f} ms "
+            f"({exps:.3g} at {H100_EXP_PER_S:.2g}/s)")
         max_err = max(max_err, err32, err16)
         ms += t_k
         res_ms += t_res
@@ -258,20 +265,30 @@ def phase_kernel(torch, attn) -> dict:
         library_ms += t_lib
         flops_ms += t_flops
         bytes_ms += t_bytes
+        exp_ms += t_exp
         del q, k, v, qb, kb, vb, out, ql, ks, vs, big, exact, qlb, ksb, vsb, want
         torch.cuda.empty_cache()
 
-    # the other compiled head dims (narrow widths, as in tests/test_torch_cuda.py)
+    # the other compiled head dims (narrow widths, as in tests/test_torch_cuda.py):
+    # bf16 at d = 64 on the tensor cores, the rest on the scalar kernel
     for d in (2, 4, 8, 64):
         for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 1e-2)):
             q, k, v = rand(1024, d, dtype)
+            mma_before = fused.mma_launches
             err = (fused(q, k, v).float() - ref(q.float(), k.float(), v.float())).abs().max().item()
             check(err <= tol, f"d={d} {dtype} max abs err {err} <= {tol}")
+            want_mma = 1 if attn.tensor_core_route(dtype, d) else 0
+            check(fused.mma_launches == mma_before + want_mma, f"d={d} {dtype} took its route")
+            if dtype == torch.bfloat16:
+                _, lse, o32 = attn.fused_attention_residuals(q, k, v)
+                _, lse_p, o32_p = ref(q, k, v, residuals=True)
+                err_r = max((lse - lse_p).abs().max().item(), (o32 - o32_p).abs().max().item())
+                check(err_r <= 1e-4, f"d={d} bf16 residuals {err_r:.3g} <= 1e-4")
     torch.cuda.synchronize()
     bound_ms = max(flops_ms, bytes_ms)
     log(f"kernel: head dims 2, 4, 8, 64 match in f32 and bf16; three-site sum bf16 kernel {ms:.3f} ms "
         f"(with residuals {res_ms:.3f} ms), plain {plain_ms:.3f} ms, scaled_dot_product_attention "
-        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms")
+        f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms, exponentials' floor {exp_ms:.4f} ms")
     return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "operations" if flops_ms >= bytes_ms else "bytes", "library_ms": library_ms,
             "residuals_ms": res_ms}
@@ -551,7 +568,7 @@ def phase_serve(torch, work: str) -> int:
 
     DiffusionTask.decode = checked_decode
 
-    fused_attention.launches = 0  # the main path starts here
+    fused_attention.launches = fused_attention.mma_launches = 0  # the main path starts here
     t_start = time.perf_counter()
     server, batcher = serve.run(cfg, port=0, serve_batch=SERVE_BATCH, max_delay_ms=50.0,
                                 sampler="dpmpp", num_steps=NUM_STEPS,
@@ -581,7 +598,7 @@ def phase_serve(torch, work: str) -> int:
             health = (r.status, json.loads(r.read()))
         with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
             stats = json.loads(r.read())
-        launches = fused_attention.launches  # the main path ends here
+        launches, mma_launches = fused_attention.launches, fused_attention.mma_launches  # the main path ends here
     finally:
         server.shutdown()
         batcher.close()
@@ -602,12 +619,14 @@ def phase_serve(torch, work: str) -> int:
     want = len(SA_SITES) * NUM_STEPS * stats["batches"]
     check(launches >= want, f"attention kernel launches {launches} >= 3 sites × {NUM_STEPS} steps × "
                             f"{stats['batches']} batches = {want}")
+    check(mma_launches == launches, f"every served attention launch on the tensor-core route "
+                                    f"({mma_launches} of {launches})")
     per_batch = (stats["busy_seconds"] - warm["busy_seconds"]) / batches
     log(f"serve: {n_images} images in {batches} batches + 1 warmup, {wall:.3f} s wall; "
         f"{per_batch:.3f} s per batch (dpmpp-{NUM_STEPS}, serve batch {SERVE_BATCH}) → "
         f"{SERVE_BATCH / per_batch:.2f} images/s at full batch, {n_images / wall:.2f} images/s served")
     log(f"serve: stats {json.dumps(stats)}")
-    log(f"serve: attention kernel launches {launches} (≥ {want})")
+    log(f"serve: attention kernel launches {launches} (≥ {want}), {mma_launches} on the tensor-core route")
 
     model = batcher.task.model
     xb = torch.randn(2 * SERVE_BATCH, latent, latent, cfg.latent_dim, device="cuda", generator=g)
@@ -621,6 +640,13 @@ def phase_serve(torch, work: str) -> int:
     log(f"serve: UNet forward at batch {2 * SERVE_BATCH} ({cfg.compute_dtype}, kernel route, 10 back to back): "
         f"{t_unet:.3f} ms; "
         f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # one served batch's device time by kernel: dpmpp-20 at serve batch 27
+    labels = torch.arange(SERVE_BATCH) % cfg.num_classes
+    gen_s = torch.Generator(device="cuda").manual_seed(4)
+    what = "serve: one batch (dpmpp-20, serve batch 27)"
+    check_fwd_route_in_profile(what, log_profile(torch, what, lambda: batcher.task.sample(
+        labels, generator=gen_s, sampler="dpmpp", num_steps=NUM_STEPS)))
     return launches
 
 
@@ -821,11 +847,12 @@ def phase_train(torch, work: str) -> tuple[int, int]:
     steps_per_epoch = TRAIN_CLASSES * TRAIN_PER_CLASS // TRAIN_BATCH
 
     torch.cuda.reset_peak_memory_stats()
-    fused_attention.launches = fused_attention_bwd.launches = 0  # the main path starts here
+    fused_attention.launches = fused_attention.mma_launches = fused_attention_bwd.launches = 0  # the main path starts
     t_run = time.perf_counter()
     state, printed = run_quiet(train_ddpm.run, cfg, device="cuda")
     wall = time.perf_counter() - t_run
     launches = (fused_attention.launches, fused_attention_bwd.launches)  # the main path ends here
+    mma_launches = fused_attention.mma_launches
     peak = torch.cuda.max_memory_allocated() / 2**30
     for line in printed.splitlines():
         log(f"train run 1: {line}")
@@ -846,12 +873,14 @@ def phase_train(torch, work: str) -> tuple[int, int]:
     want = 3 * steps
     check(launches[0] >= want and launches[1] >= want,
           f"attention launches fwd {launches[0]}, bwd {launches[1]} >= 3 sites × {steps} steps = {want}")
+    check(mma_launches == launches[0], f"every forward attention launch of the run on the tensor-core route "
+                                       f"({mma_launches} of {launches[0]})")
     s_per_step = float(np.mean([float(e[3]) for e in epochs[1:]]))
     log(f"train: {steps} steps of batch {TRAIN_BATCH} in {wall:.2f} s wall (with encode, validation, previews, "
         f"checkpoints); epoch 1 {epochs[1][3]} s/step, {epochs[1][4]} images/s (epoch 0 {epochs[0][3]} s/step); "
         f"latent cache encode {encode.group(2)} s for {encode.group(1)} images; losses {losses[0]:.4f} → "
-        f"{losses[-1]:.4f}; peak device memory {peak:.2f} GiB; attention launches fwd {launches[0]}, "
-        f"bwd {launches[1]} (≥ {want})")
+        f"{losses[-1]:.4f}; peak device memory {peak:.2f} GiB; attention launches fwd {launches[0]} "
+        f"({mma_launches} on the tensor-core route), bwd {launches[1]} (≥ {want})")
 
     # resume: a longer schedule from the saved step
     fused_attention.launches = fused_attention_bwd.launches = 0
@@ -864,11 +893,11 @@ def phase_train(torch, work: str) -> tuple[int, int]:
 
     # the run's checkpoint, served: one dpmpp-20 batch through the kernel
     task = load_task(cfg, torch.device("cuda"))
-    fused_attention.launches = 0
+    fused_attention.launches = fused_attention.mma_launches = 0
     imgs = task.sample(torch.arange(cfg.num_classes), generator=torch.Generator(device="cuda").manual_seed(0),
                        sampler="dpmpp", num_steps=NUM_STEPS)
     check(imgs.shape == (cfg.num_classes, 256, 256, 1) and imgs.dtype == torch.uint8, "served samples' shape")
-    check(fused_attention.launches >= 3 * NUM_STEPS, "served sampling went through the kernel")
+    check(fused_attention.mma_launches >= 3 * NUM_STEPS, "served sampling went through the tensor-core kernel")
     log(f"train: the checkpoint of step {state2.step} serves through cli.common.load_task: {cfg.num_classes} "
         f"dpmpp-{NUM_STEPS} samples, {fused_attention.launches} forward kernel launches")
     del task, state, state2
@@ -964,12 +993,22 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
         f"against {1e3 * s_per_step:.1f} ms per step in the run")
 
     # the attention kernels' share of one step's device time
+    b = next(batches)
+    check_fwd_route_in_profile("train: one step", log_profile(
+        torch, "train: one step", lambda: task.train_step(state, b["latent"], b["label"], encoded=True)))
+    del batches
+
+
+def log_profile(torch, what: str, fn) -> set[str]:
+    """Runs fn() once under torch.profiler and prints its device time, the
+    attention kernels' shares and the top kernels; returns the names of the
+    kernels that ran (empty if the profiler recorded no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    b = next(batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        task.train_step(state, b["latent"], b["label"], encoded=True)
+        fn()
         torch.cuda.synchronize()
+
     def device_us(e) -> float:  # the attribute's name changed across torch versions
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0.0)
 
@@ -981,12 +1020,24 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
     bwd = sum(device_us(e) for e in kernels if "attention_bwd" in e.key)
     if total > 0:
         top = sorted(kernels, key=lambda e: -device_us(e))[:8]
-        log(f"train: one step's device time {total / 1e3:.3f} ms (torch.profiler): attention fwd "
-            f"{100 * fwd / total:.1f} %, bwd {100 * bwd / total:.1f} %; top kernels: "
+        log(f"{what}: device time {total / 1e3:.3f} ms (torch.profiler): attention fwd "
+            f"{100 * fwd / total:.1f} % ({fwd / 1e3:.3f} ms), bwd {100 * bwd / total:.1f} %; top kernels: "
             + "; ".join(f"{e.key[:70]} {device_us(e) / 1e3:.3f} ms" for e in top))
-    else:
-        log("train: torch.profiler recorded no device time; attention share not measured")
-    del batches
+        return {e.key for e in kernels}
+    log(f"{what}: torch.profiler recorded no device time; not measured")
+    return set()
+
+
+def check_fwd_route_in_profile(what: str, names: set[str]) -> None:
+    """The profile's kernel names show the forward's route: attention_fwd_mma
+    ran and attention_fwd_kernel (the scalar one) did not."""
+    if not names:
+        log(f"{what}: no profile, the route by kernel name is not checked")
+        return
+    mma = any("attention_fwd_mma" in k for k in names)
+    scalar = any("attention_fwd_kernel" in k for k in names)
+    check(mma and not scalar, f"{what}: the profile holds attention_fwd_mma ({mma}) and not "
+                              f"attention_fwd_kernel ({scalar})")
 
 
 def main() -> int:

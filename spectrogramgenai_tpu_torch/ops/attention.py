@@ -5,8 +5,9 @@ is differentiable through a ``torch.autograd.Function`` that saves q, k and v
 (the JAX custom VJP's residuals) and, for bf16 inputs, the forward's row
 log-sum-exp and f32 output, and recomputes P in the backward:
 
-  * forward: on a CUDA tensor the kernel of ``csrc/attention_fwd.cu``, on a
-    CPU tensor :func:`attention_reference`;
+  * forward: on a CUDA tensor the kernels of ``csrc/attention_fwd.cu`` (a
+    tensor-core kernel for bf16 at d ≥ 16, the scalar one otherwise; the
+    launch reports which one ran), on a CPU tensor :func:`attention_reference`;
   * backward (:func:`fused_attention_bwd`): on a CUDA tensor the kernels of
     ``csrc/attention_bwd.cu`` (tensor-core kernels for bf16, which take the
     residuals; scalar ones for float32), on a CPU tensor
@@ -30,6 +31,16 @@ SUPPORTED_HEAD_DIMS = (2, 4, 8, 16, 32, 64)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_Q = 128  # query rows per kernel block: N must be a multiple
 LOG2E = 1.4426950408889634
+TENSOR_CORE_HEAD_DIMS = (16, 32, 64)
+
+
+def tensor_core_route(dtype: torch.dtype, d: int) -> bool:
+    """Whether the forward kernel for this input type and head dim should be
+    the tensor-core one (``attention_fwd_mma``): bf16 at d ∈ {16, 32, 64}. The
+    route is fixed by these two alone. What a launch ran is what the kernel
+    reports (``fused_attention.mma_launches``); this is what callers check it
+    against."""
+    return dtype == torch.bfloat16 and d in TENSOR_CORE_HEAD_DIMS
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool = False):
@@ -63,11 +74,12 @@ def attention_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel(name: str, n_pointers: int) -> ctypes.CDLL:
+def _kernel(name: str, n_pointers: int, n_out: int = 0) -> ctypes.CDLL:
     lib = _build.load(name)
     fn = getattr(lib, name)
     if fn.argtypes is None:  # first use: declare the C signatures
-        fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.argtypes = ([ctypes.c_void_p] * n_pointers + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+                       + [ctypes.POINTER(ctypes.c_int)] * n_out)
         fn.restype = ctypes.c_int
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
@@ -104,8 +116,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool 
     if q.device.type == "cpu":
         return attention_reference(q, k, v, residuals)
     b, h, n, d = q.shape
-    lib = _kernel("attention_fwd", 6)
+    lib = _kernel("attention_fwd", 6, n_out=1)
     out = torch.empty_like(q)
+    route = ctypes.c_int(-1)
     lse = o32 = None
     if residuals:
         lse = torch.empty(b, h, n, dtype=torch.float32, device=q.device)
@@ -113,16 +126,19 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool 
     with torch.cuda.device(q.device):
         err = lib.attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                                 lse.data_ptr() if residuals else None, o32.data_ptr() if residuals else None,
-                                b * h, n, d, _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
+                                b * h, n, d, _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream,
+                                ctypes.byref(route))
     _raise_on(lib, "attention_fwd", err)
     fused_attention.launches += 1
+    fused_attention.mma_launches += int(route.value == 1)  # the kernel that the C dispatch launched
     return (out, lse, o32) if residuals else out
 
 
 def fused_attention_residuals(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     """(out, lse, o32): the forward with the residuals that the bf16 backward
     takes — the row log-sum-exp in the exp2 domain, (B, H, N) float32, and
-    the output in float32. Counts in ``fused_attention.launches``."""
+    the output in float32. Counts in ``fused_attention.launches`` (and, on
+    the tensor-core route, ``fused_attention.mma_launches``)."""
     _check(q, k, v)
     return _forward(q, k, v, residuals=True)
 
@@ -192,7 +208,9 @@ class _FusedAttention(torch.autograd.Function):
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q·kᵀ/√d)·v, non-causal and unmasked, f32 accumulation, output
     in the input dtype; differentiable. Inputs are validated before the device
-    is looked at. ``fused_attention.launches`` counts forward kernel launches."""
+    is looked at. ``fused_attention.launches`` counts forward kernel launches,
+    ``fused_attention.mma_launches`` those of them that the kernel reports as
+    tensor-core launches."""
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FusedAttention.apply(q, k, v)
@@ -200,3 +218,4 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 
 
 fused_attention.launches = 0
+fused_attention.mma_launches = 0

@@ -169,6 +169,8 @@ def mma_layout(wc: np.ndarray, ws: np.ndarray, fb_t: np.ndarray, rung: str):
     fbᵀ: (nbp/16, 16, P, 32, 4) uint32: for bin block j, mel tile pair u2,
     part p and lane, {tile 2·u2: b01, b23; tile 2·u2 + 1: b01, b23} with rows
     16j + 2q + {0, 1} (+8) and column 8·(2·u2 + t) + g.
+    W is in (j, s) order, so the 16 (or 4) steps of one bin block that the
+    kernel stages in shared memory as one chunk are one contiguous run.
     """
     n_fft, n_bins = wc.shape
     nbp = _round_up(n_bins, 16)

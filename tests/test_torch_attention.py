@@ -1,7 +1,12 @@
 """The port's attention wrapper against the JAX Pallas kernel (interpret mode).
 
-On the CPU the wrapper computes its plain PyTorch version; the CUDA kernel
-itself is checked on the card by chip_smoke.py.
+On the CPU the wrapper computes its plain PyTorch version; the CUDA kernels
+themselves are checked on the card by chip_smoke.py and
+tests/test_torch_cuda.py. Here the tensor-core forward's two rounding plans
+are checked without a card, through their plain emulation in
+tests/torch_attention_helpers.py: serving (P as one bf16, the denominator summed
+from those values: the JAX kernel's plan) and the residuals that training
+saves (P as bf16 hi + lo, the denominator and lse from the f32 P).
 """
 
 import numpy as np
@@ -16,7 +21,10 @@ from spectrogramgenai_tpu.ops.attention import fused_attention as jax_fused_atte
 from spectrogramgenai_tpu_torch.ops.attention import (  # noqa: E402
     attention_reference,
     fused_attention,
+    tensor_core_route,
 )
+import torch_attention_helpers as plans  # noqa: E402
+from torch_port_helpers import one_torch_thread  # noqa: E402, F401
 
 INTERPRET = jax.default_backend() != "tpu"
 
@@ -111,3 +119,67 @@ def test_bfloat16_on_cpu_keeps_dtype():
     want = attention_reference(q.bfloat16().float(), k.bfloat16().float(), v.bfloat16().float())
     # only the output is rounded to bf16 (2⁻⁸ relative on O(1) values)
     np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=1e-2)
+
+
+def test_route_is_fixed_by_type_and_head_dim():
+    assert [d for d in (2, 4, 8, 16, 32, 64) if tensor_core_route(torch.bfloat16, d)] == [16, 32, 64]
+    assert not any(tensor_core_route(torch.float32, d) for d in (2, 4, 8, 16, 32, 64))
+
+
+# ------------------------------------- the tensor-core forward's rounding, on the CPU
+
+
+def _bf16_inputs(seed, shape):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16() for _ in range(4)]
+
+
+def _exact64(q, k, v):
+    q, k, v = q.double(), k.double(), v.double()
+    return torch.softmax(q @ k.mT / np.sqrt(q.shape[-1]), dim=-1) @ v
+
+
+@pytest.mark.parametrize("d", [16, 32])  # sa_4 / sa_5 and sa_0
+def test_serving_rounding_plan_matches_jax_kernel_and_float64(d):
+    q, k, v, _ = _bf16_inputs(20 + d, (1, 2, 256, d))
+    got = plans.forward(q, k, v, residuals=False)
+    assert got.dtype == torch.bfloat16
+    got = got.double()
+    want_jax = np.asarray(jax_fused_attention(*(jnp.asarray(x.float().numpy(), jnp.bfloat16) for x in (q, k, v)),
+                                              interpret=INTERPRET), np.float64)
+    exact = _exact64(q, k, v)
+    # both round P to one bf16 (the plan after its row max, JAX before) and
+    # their outputs to bf16: one bf16 step (2⁻⁹ of values in [0.5, 1)) apart
+    assert np.abs(got.numpy() - want_jax).max() <= 2 ** -8
+    # what is left against float64 is the output's bf16 rounding and P's,
+    # averaged over 256 keys (readings 1.6e-3 and 1.5e-3)
+    assert (got - exact).abs().max().item() <= 2e-3
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_residual_rounding_plan_meets_the_plain_residuals(d):
+    q, k, v, _ = _bf16_inputs(30 + d, (1, 2, 512, d))
+    out, lse, o32 = plans.forward(q, k, v, residuals=True)
+    _, lse_p, o32_p = attention_reference(q, k, v, residuals=True)
+    # chip_smoke.py's tolerance for the kernel: f32 sums in another order;
+    # hi + lo leaves P's rounding at 2⁻¹⁷ (readings ≤ 9.9e-7)
+    assert (lse - lse_p).abs().max().item() <= 1e-4 and (o32 - o32_p).abs().max().item() <= 1e-4
+    assert torch.equal(o32.bfloat16(), out)
+    # one bf16 P, as in serving, would move O₃₂ by ~2⁻⁹ of a term: 5.5e-4 / 5.3e-4 here
+    assert (plans.one_bf16_residuals(q, k, v)[1] - o32_p).abs().max().item() > 1e-4
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_residual_rounding_plan_keeps_the_backward_in_tolerance_at_large_logits(d):
+    # a key component of 200: logits up to ~165 (see test_torch_attention_bwd.py).
+    # An error in O₃₂ shifts c = rowsum(dO∘O₃₂) and every dS of the row with it,
+    # which loses Σ_j dS_ij = 0, and the key component multiplies what is left
+    q, k, v, do = _bf16_inputs(40 + d, (1, 2, 512, d))
+    k = (k.float() + torch.tensor([200.0] + [0.0] * (d - 1))).bfloat16()
+    exact = plans.exact64(q, k, v, do)
+    lse, o32 = plans.forward(q, k, v, residuals=True)[1:]
+    for name, g, e in zip(("dq", "dk", "dv"), plans.backward(q, k, v, do, lse, o32, pairs=True), exact):
+        assert plans.row_rel_err(g, e) <= 5e-3, name  # chip_smoke.py's BWD_TOL["bfloat16"] (readings ≤ 3.0e-3)
+    # with the one-bf16 O₃₂ the backward's dQ reads 0.31 (d 16) and 0.18 (d 32) per row
+    dq = plans.backward(q, k, v, do, *plans.one_bf16_residuals(q, k, v), pairs=True)[0]
+    assert plans.row_rel_err(dq, exact[0]) > 0.05

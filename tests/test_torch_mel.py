@@ -24,7 +24,16 @@ from spectrogramgenai_tpu.ops import mel_kernel as jkernel  # noqa: E402
 from spectrogramgenai_tpu_torch.audio import mel as tmel  # noqa: E402
 from spectrogramgenai_tpu_torch.audio import spectrogram as tspec  # noqa: E402
 from spectrogramgenai_tpu_torch.ops import mel_kernel as tkernel  # noqa: E402
-from torch_mel_helpers import RUNG_BOUNDS, fft_kernel, mel_rel_err, mma_kernel, stress_audio  # noqa: E402
+from torch_mel_helpers import (  # noqa: E402
+    RING_BYTES,
+    RUNG_BOUNDS,
+    SLOT_STEPS,
+    fft_kernel,
+    mel_rel_err,
+    mma_kernel,
+    mma_tile_frames,
+    stress_audio,
+)
 from torch_port_helpers import one_torch_thread  # noqa: E402, F401
 
 
@@ -201,9 +210,11 @@ def test_second_sample_rate_and_odd_length_meet_exact_bound():
 # ------------------------------------------------------- the kernels' layouts
 
 
-EMU_CFGS = [  # small shapes: a partial second tile, a hop that does not divide n_fft, n_mels < 256
-    (tspec.SpectrogramConfig(sample_rate=8000, n_fft=64, hop_length=16, n_mels=16), 1500),
+EMU_CFGS = [  # small shapes: a partial second tile, a hop that does not divide n_fft, n_mels < 256,
+    # and chunks of 16 k-steps (n_fft 256) beside chunks of 4
+    (tspec.SpectrogramConfig(sample_rate=8000, n_fft=64, hop_length=16, n_mels=16), 2000),
     (tspec.SpectrogramConfig(sample_rate=8000, n_fft=64, hop_length=48, n_mels=20), 3100),
+    (tspec.SpectrogramConfig(sample_rate=8000, n_fft=256, hop_length=64, n_mels=24), 2000),
 ]
 
 
@@ -242,6 +253,18 @@ def test_kernel_constants_are_padded_with_zeros():
     for rung, parts in (("high", 2), ("fast", 1)):
         w, fb, nbp = tkernel.mma_layout(wc, ws, fb_t, rung)
         assert nbp == 1040 and w.shape == (65, 128, parts, 2, 32, 4) and fb.shape == (65, 16, parts, 32, 4)
+        # bin block 64 holds bins 1024 … 1039 and only bin 1024 exists: lane 4g + q reads column
+        # 16·64 + 8t + g, so every word but tile 0 of lanes 0 … 3 is padding
+        assert not w[64, :, :, :, 4:].any() and not w[64, :, :, :, :4, 2:].any() and w[64, :, :, :, :4, :2].any()
+        # filterbank rows of bins ≥ 1025: b23 (rows + 8) of every lane, b01 of lanes with q > 0
+        assert not fb[64, ..., 1::2].any() and not fb[64, :, :, np.arange(32) % 4 > 0].any()
+        # the kernel stages W in chunks of 16 k-steps of one bin block, each a contiguous
+        # run of 16·parts·64 uint4 (one bulk copy), through a 64 KB ring beside the audio
+        # span of 96 frames (for "high" hi and lo)
+        chunks = w.reshape(65 * 128 // SLOT_STEPS, SLOT_STEPS * parts * 64 * 4)
+        assert np.array_equal(chunks[9], w[1, 16:32].reshape(-1))
+        assert RING_BYTES % (SLOT_STEPS * parts * 64 * 16) == 0
+        assert mma_tile_frames(cfg, rung) == 96
 
 
 # ------------------------------------------------------------ the wrapper

@@ -4,8 +4,8 @@ bounds and tolerances, and NumPy mirrors of the CUDA mel kernels (``csrc/mel_pow
 Each function follows its kernel's index arithmetic line by line: for the
 FFT kernel the frame pairs, the Stockham stages' butterfly and twiddle
 indices, the split of the two frames' spectra and the mel ranges; for the
-mma kernels the shared memory span of a block, the per-lane loads from the
-host-packed constants, and the register layouts that PTX defines for
+mma kernels the shared memory span of a block, the ring of W chunks it
+stages, the per-lane ldmatrix and shared-memory loads, and the register layouts that PTX defines for
 ``mma.sync.m16n8k16`` (bf16 in, f32 out). The CUDA code cannot run without a card; these mirrors let the CPU
 tests check that the packed operand layouts of ``ops/mel_kernel.py`` and the
 kernels' offsets agree, by computing the same mel power as the plain version.
@@ -21,8 +21,24 @@ import torch
 from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, constants
 from spectrogramgenai_tpu_torch.ops import mel_kernel as mk
 
-TILE = 64
+SLOT_STEPS = 16  # 16-sample k-steps of W per slot of the mma kernels' ring
 MELS = 256
+# the mma kernel's shared memory (csrc/mel_power.cu): a 64 KB ring of W
+# chunks and its barriers, then the audio span of a tile of frames, rows
+# padded by ROW_PAD bf16; an sm_90 block may hold 227 KB
+RING_BYTES, BARRIER_BYTES, ROW_PAD, MAX_SHARED_BYTES, MAX_TILE = 65536, 64, 8, 232448, 96
+
+
+def mma_tile_frames(cfg: SpectrogramConfig, rung: str) -> int:
+    """The frames per block that the mma kernel's launch chooses (mma_tile):
+    the largest multiple of 16 up to MAX_TILE whose audio span (bf16, hi and
+    lo for "high") fits in shared memory beside the W ring; 0 if none does."""
+    parts = 2 if rung == "high" else 1
+    for tile in range(MAX_TILE, 0, -16):
+        span = 2 * parts * (tile + (cfg.n_fft - 1) // cfg.hop_length) * (cfg.hop_length + ROW_PAD)
+        if RING_BYTES + BARRIER_BYTES + span <= MAX_SHARED_BYTES:
+            return tile
+    return 0
 
 
 def stress_audio(cfg: SpectrogramConfig, n_clips: int, seed: int = 0) -> np.ndarray:
@@ -115,8 +131,19 @@ def _mma(acc: np.ndarray, a: list[np.ndarray], b0: np.ndarray, b1: np.ndarray) -
         acc[:, 2 + e] += D[g + 8, 2 * q + e]
 
 
+def _ldsm_x4(buf: np.ndarray, addrs: np.ndarray) -> list[np.ndarray]:
+    """ldmatrix.x4 (no .trans) from the bf16 array ``buf``: lanes 8i … 8i + 7
+    give the element offsets of the rows of matrix i; register i of lane l
+    is row l // 4, columns 2·(l % 4) and + 1 of matrix i, as (32, 2)."""
+    lane = np.arange(32)
+    return [np.stack([buf[addrs[8 * i + lane // 4] + 2 * (lane % 4) + e] for e in range(2)], -1)
+            for i in range(4)]
+
+
 def mma_kernel(audio: np.ndarray, cfg: SpectrogramConfig, rung: str) -> np.ndarray:
-    """mel_power_mma_kernel<PARTS> (PARTS 2 for "high", 1 for "fast")."""
+    """mel_power_mma_kernel<PARTS> (PARTS 2 for "high", 1 for "fast"): a block
+    of a warp per 16 frames per tile of frames, W streamed through a ring of chunks of 16
+    (or 4) k-steps (bulk copies; a slot is refilled once every warp has left it)."""
     parts = 2 if rung == "high" else 1
     wc, ws = mk._dft(cfg)
     w, fb, nbp = mk.mma_layout(wc, ws, np.ascontiguousarray(constants(cfg)[1].T), rung)
@@ -125,57 +152,72 @@ def mma_kernel(audio: np.ndarray, cfg: SpectrogramConfig, rung: str) -> np.ndarr
     n_fft, hop = cfg.n_fft, cfg.hop_length
     pad = n_fft // 2 if cfg.center else 0
     t_frames = cfg.frames_for(n)
-    span_rows, stride = TILE + (n_fft - 1) // hop, hop + 8
+    tile = mma_tile_frames(cfg, rung)
+    span_rows, stride = tile + (n_fft - 1) // hop, hop + ROW_PAD
     steps, n_jb = n_fft // 16, nbp // 16
+    step_words = parts * 64  # uint4 per k-step
+    stages = RING_BYTES // (16 * SLOT_STEPS * step_words)
+    chunk = SLOT_STEPS if steps % SLOT_STEPS == 0 else 4  # k-steps per chunk
+    per_jb = steps // chunk
+    n_chunks = n_jb * per_jb
     lane = np.arange(32)
     g, q = lane // 4, lane % 4
     out = np.zeros((bsz, t_frames, cfg.n_mels))
     for b in range(bsz):
-        for tile in range(-(-t_frames // TILE)):
-            f_base = tile * TILE
-            i = np.arange(span_rows * hop)
-            s = f_base * hop + i - pad
+        for f_base in range(0, t_frames, tile):
+            r, c = np.divmod(np.arange(span_rows * hop), hop)
+            s = (f_base + r) * hop + c - pad
             v = np.where((s >= 0) & (s < n), audio[b, np.clip(s, 0, n - 1)], 0.0).astype(np.float32)
-            r, c = i // hop, i % hop
             span = np.zeros((2, span_rows * stride))  # the audio's bf16 hi and lo
             span[0, r * stride + c] = _bf16(v)
             if parts == 2:
                 span[1, r * stride + c] = _bf16(v - _bf16(v))
+            ring = np.zeros((stages, SLOT_STEPS * step_words, 4), np.uint32)
 
-            def a_frag(p, off):  # four 32-bit loads of bf16 pairs
-                return [np.stack([span[p, o], span[p, o + 1]], -1)
-                        for o in (off, off + 8 * stride, off + 8, off + 8 * stride + 8)]
+            def stage(ci):
+                if ci < n_chunks:
+                    ring[ci % stages, :chunk * step_words] = wf[ci * chunk * step_words:(ci + 1) * chunk * step_words]
 
-            for warp in range(4):
-                fw = warp * 16
-                if f_base + fw >= t_frames:
-                    continue
-                mel = np.zeros((MELS // 8, 32, 4))
-                for jb in range(n_jb):
-                    re, im = np.zeros((2, 32, 4)), np.zeros((2, 32, 4))
-                    re_c, im_c = np.zeros((2, 32, 4)), np.zeros((2, 32, 4))
-                    wp = jb * steps * parts * 64 + lane
-                    off, col = (fw + g) * stride + 2 * q, 0
-                    for st in range(steps):
-                        a = a_frag(0, off)
-                        ws_ = wp + st * parts * 64
-                        bc, bs = _halves(wf[ws_]), _halves(wf[ws_ + 32])  # (32, 4 words, 2)
-                        _mma(re[0], a, bc[:, 0], bc[:, 1])
-                        _mma(re[1], a, bc[:, 2], bc[:, 3])
-                        _mma(im[0], a, bs[:, 0], bs[:, 1])
-                        _mma(im[1], a, bs[:, 2], bs[:, 3])
+            for ci in range(stages):
+                stage(ci)
+            warps = [wp for wp in range(tile // 16) if f_base + 16 * wp < t_frames]
+            mel = {wp: np.zeros((MELS // 8, 32, 4)) for wp in warps}
+            ci = 0
+            for jb in range(n_jb):
+                acc = {wp: np.zeros((4, 2, 32, 4)) for wp in warps}  # re, im, re_c, im_c
+                offs = {wp: (16 * wp + (lane & 15)) * stride + ((lane >> 4) << 3) for wp in warps}
+                col = 0
+                for _ in range(per_jb):
+                    if ci >= 1:  # the slot of chunk ci − 1, which every warp has left
+                        stage(ci - 1 + stages)
+                    slot = ring[ci % stages]
+                    for i in range(chunk):
+                        ws_ = i * step_words + lane
+                        bc, bs = _halves(slot[ws_]), _halves(slot[ws_ + 32])  # (32, 4 words, 2)
                         if parts == 2:
-                            al = a_frag(1, off)
+                            lc, ls = _halves(slot[ws_ + 64]), _halves(slot[ws_ + 96])
+                        for wp in warps:
+                            re, im, re_c, im_c = acc[wp]
+                            a = _ldsm_x4(span[0], offs[wp])
                             for t in range(2):
-                                _mma(re_c[t], al, bc[:, 2 * t], bc[:, 2 * t + 1])
-                                _mma(im_c[t], al, bs[:, 2 * t], bs[:, 2 * t + 1])
-                            lc, ls = _halves(wf[ws_ + 64]), _halves(wf[ws_ + 96])
-                            for t in range(2):
-                                _mma(re_c[t], a, lc[:, 2 * t], lc[:, 2 * t + 1])
-                                _mma(im_c[t], a, ls[:, 2 * t], ls[:, 2 * t + 1])
-                        off, col = off + 16, col + 16
-                        if col == hop:
-                            off, col = off + 8, 0
+                                _mma(re[t], a, bc[:, 2 * t], bc[:, 2 * t + 1])
+                                _mma(im[t], a, bs[:, 2 * t], bs[:, 2 * t + 1])
+                            if parts == 2:
+                                al = _ldsm_x4(span[1], offs[wp])
+                                for t in range(2):
+                                    _mma(re_c[t], al, bc[:, 2 * t], bc[:, 2 * t + 1])
+                                    _mma(im_c[t], al, bs[:, 2 * t], bs[:, 2 * t + 1])
+                                    _mma(re_c[t], a, lc[:, 2 * t], lc[:, 2 * t + 1])
+                                    _mma(im_c[t], a, ls[:, 2 * t], ls[:, 2 * t + 1])
+                            offs[wp] = offs[wp] + 16
+                        col += 16
+                        if col == hop:  # on to the next span row
+                            col = 0
+                            for wp in warps:
+                                offs[wp] = offs[wp] + ROW_PAD
+                    ci += 1
+                for wp in warps:
+                    re, im, re_c, im_c = acc[wp]
                     pw = ((re + re_c) ** 2 + (im + im_c) ** 2).astype(np.float32)  # (2, 32, 4)
                     hi = _bf16(pw)
                     ph = [hi[0][:, 0:2], hi[0][:, 2:4], hi[1][:, 0:2], hi[1][:, 2:4]]
@@ -185,19 +227,20 @@ def mma_kernel(audio: np.ndarray, cfg: SpectrogramConfig, rung: str) -> np.ndarr
                     for u2 in range(MELS // 16):
                         fh = _halves(fbf[fp + u2 * parts * 32])
                         for t in range(2):
-                            _mma(mel[2 * u2 + t], ph, fh[:, 2 * t], fh[:, 2 * t + 1])
+                            _mma(mel[wp][2 * u2 + t], ph, fh[:, 2 * t], fh[:, 2 * t + 1])
                         if parts == 2:
                             fl = _halves(fbf[fp + u2 * parts * 32 + 32])
                             for t in range(2):
-                                _mma(mel[2 * u2 + t], ph, fl[:, 2 * t], fl[:, 2 * t + 1])
-                                _mma(mel[2 * u2 + t], pl, fh[:, 2 * t], fh[:, 2 * t + 1])
+                                _mma(mel[wp][2 * u2 + t], ph, fl[:, 2 * t], fl[:, 2 * t + 1])
+                                _mma(mel[wp][2 * u2 + t], pl, fh[:, 2 * t], fh[:, 2 * t + 1])
+            for wp in warps:
                 for h in range(2):
-                    f = f_base + fw + g + 8 * h
+                    f = f_base + 16 * wp + g + 8 * h
                     for u in range(MELS // 8):
                         for e in range(2):
                             col_ = u * 8 + 2 * q + e
                             ok = (f < t_frames) & (col_ < cfg.n_mels)
-                            out[b, f[ok], col_[ok]] = mel[u][ok, 2 * h + e]
+                            out[b, f[ok], col_[ok]] = mel[wp][u][ok, 2 * h + e]
     return out.astype(np.float32)
 
 

@@ -1,65 +1,40 @@
 #!/usr/bin/env python3
-"""Per-row error of two rounding plans for the bf16 attention backward, on the CPU.
+"""Per-row error of the rounding plans of the bf16 attention kernels, on the CPU.
 
     python3 tools/port_bwd_rounding.py [--heads 4] [--threads 4]
 
-The tensor-core backward (spectrogramgenai_tpu_torch/csrc/attention_bwd.cu)
-multiplies P and dS, which it forms in f32, with bf16 operands. This script
-emulates its arithmetic in plain PyTorch at the UNet's training sites (N,
-d) = (1024, 32), (1024, 16), (4096, 16), on random bf16 inputs and on a
-large-logit head (a key component of 200), with P and dS rounded to one bf16
-each, or split into bf16 hi + lo pairs (what the kernels do), and prints
-each plan's largest per-row error of dQ, dK and dV against float64, beside
-the bf16 rounding of the float64 result itself. Imports torch and numpy only.
+The tensor-core kernels of spectrogramgenai_tpu_torch/csrc/ take their
+products with bf16 operands and f32 sums. Their plain emulations, the
+forward's serving (one bf16 P) and residual (P as bf16 hi + lo) plans and
+the backward's plans (P and dS as one bf16 or hi + lo), are in
+tests/torch_attention_helpers.py, which the CPU tests use too.
+
+The script runs both at the UNet's training sites (N, d) = (1024, 32),
+(1024, 16), (4096, 16), on random bf16 inputs and on a large-logit head (a
+key component of 200), and prints each backward plan's largest per-row error
+of dQ, dK and dV against float64, given the forward's residuals as the
+tensor-core forward writes them (hi + lo P), as the one-bf16 plan would
+write them, and in float64, beside the bf16 rounding of the float64 result
+itself. Imports torch only.
 """
 
 from __future__ import annotations
 
 import argparse
-import math
+import os
+import sys
 
 import torch
 
-LOG2E = 1.4426950408889634
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.bfloat16().float()
-
-
-def backward(q, k, v, do, pairs: bool):
-    """(dq, dk, dv) in bf16 from bf16 inputs: f32 sums of exact products, P
-    from the row log-sum-exp, c = rowsum(dO∘O); P and dS rounded to one bf16,
-    or to hi + lo with ``pairs``."""
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = (qf @ kf.mT) * torch.tensor(LOG2E * scale, dtype=torch.float32)
-    lse = (torch.logsumexp(s.double() / LOG2E, -1, keepdim=True) * LOG2E).float()
-    p = torch.exp2(s - lse)
-    ds = p * (dof @ vf.mT - (dof * (p @ vf)).sum(-1, keepdim=True))
-
-    def parts(x):
-        hi = _bf16(x)
-        return (hi, _bf16(x - hi)) if pairs else (hi,)
-
-    dv = sum(t.mT @ dof for t in parts(p))
-    dq = sum(t @ kf for t in parts(ds)) * scale
-    dk = sum(t.mT @ qf for t in parts(ds)) * scale
-    return dq.bfloat16(), dk.bfloat16(), dv.bfloat16()
-
-
-def exact64(q, k, v, do):
-    q, k, v, do = (t.double() for t in (q, k, v, do))
-    scale = 1.0 / math.sqrt(q.shape[-1])
-    p = torch.softmax(q @ k.mT * scale, dim=-1)
-    dp = do @ v.mT
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    return ds @ k * scale, ds.mT @ q * scale, p.mT @ do
-
-
-def row_rel_err(got, want) -> float:
-    got, want = got.double(), want.double()
-    return ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "tests"))
+from torch_attention_helpers import (  # noqa: E402
+    backward,
+    exact64,
+    exact_residuals,
+    forward,
+    one_bf16_residuals,
+    row_rel_err,
+)
 
 
 def main() -> None:
@@ -77,12 +52,17 @@ def main() -> None:
             args_bf = [t.bfloat16() for t in (q, kk, v, do)]
             want = exact64(*args_bf)
             floor = [row_rel_err(w.bfloat16(), w) for w in want]
-            line = [f"N {n} d {d} {label}: per-row error against float64 (dq, dk, dv)"]
-            for name, pairs in (("one bf16", False), ("hi + lo", True)):
-                errs = [row_rel_err(g, w) for g, w in zip(backward(*args_bf, pairs=pairs), want)]
-                line.append(f"{name} {' '.join(f'{e:.3g}' for e in errs)}")
-            line.append(f"output rounding {' '.join(f'{e:.3g}' for e in floor)}")
-            print("; ".join(line), flush=True)
+            print(f"N {n} d {d} {label}: per-row error against float64 (dq, dk, dv); "
+                  f"output rounding {' '.join(f'{e:.3g}' for e in floor)}", flush=True)
+            residuals = (("forward hi + lo", forward(*args_bf[:3], residuals=True)[1:]),
+                         ("forward one bf16", one_bf16_residuals(*args_bf[:3])),
+                         ("float64", exact_residuals(*args_bf[:3])))
+            for res_name, (lse, o32) in residuals:
+                line = [f"  residuals {res_name}"]
+                for name, pairs in (("one bf16", False), ("hi + lo", True)):
+                    errs = [row_rel_err(g, w) for g, w in zip(backward(*args_bf, lse, o32, pairs=pairs), want)]
+                    line.append(f"{name} {' '.join(f'{e:.3g}' for e in errs)}")
+                print("; ".join(line), flush=True)
 
 
 if __name__ == "__main__":
