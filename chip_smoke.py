@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, mel front end and latent-DDPM training once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, mel front end and training loop once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -54,10 +54,17 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 (given the residuals), plain and scaled_dot_product_attention
                 backward (fwd+bwd − fwd) times, the bound and the
                 exponentials' floor.
-  8. train    — a 27-class corpus (10 train + 6 val clips per class) through
-                cli.gen_specs.run (exact rung) into datasets/{train,val}/;
-                seeded random full-size VQ-VAE saved as a checkpoint;
-                cli.train_ddpm.run with the DDPMConfig defaults (UNet width
+  8. train_vqvae — a 27-class corpus (10 train + 6 val clips per class)
+                through cli.gen_specs.run (exact rung) into datasets/{train,val}/;
+                cli.train_vqvae.run with the VQVAEConfig defaults (hidden 512,
+                512 codes, latent 4, 256×256, bf16, batch 16, Adam 2e-4) for 2
+                epochs, then one resumed epoch: every loss finite, perplexity
+                > 1, codebook and params moved, the saved step, params,
+                codebook and Adam moments restored bit-equal; s/step, images/s,
+                a step's split (CUDA events), its device time by kernel
+                (torch.profiler) and peak memory.
+  9. train    — cli.train_ddpm.run from that VQ-VAE checkpoint with the
+                DDPMConfig defaults (UNet width
                 1.0, 64×64×4 latent, bf16, latent cache, batch 32) for 2
                 epochs of 8 steps, then again with 3 epochs, resuming; every
                 loss finite, params changed, both attention kernels launched
@@ -67,6 +74,16 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 noise, keep); images/s, s/step, a step's split (CUDA events),
                 the attention share of a step's device time (torch.profiler),
                 peak memory and the latent-cache encode time.
+ 10. classifiers — cli.generate.run writes 3 dpmpp-20 images per class from
+                the trained DDPM ({class}_gen_imgs_{i}_{samp}.png);
+                cli.train_classifiers runs the custom CNN and ResNet18 at 0 and
+                2 synthetic images per class for 2 epochs (batch 16, 256×256,
+                val standing in as test): finite losses, a CSV row per epoch,
+                the best checkpoint, the synthetic count per class, ResNet18's
+                frozen prefix bit-equal to its init with its BatchNorm
+                statistics moved; one train step each of VGG16, MobileNetV2 and
+                the ensemble; cli.eval_classifiers on the best checkpoints;
+                s/epoch, images/s, step times and peak memory.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when CUDA
@@ -807,20 +824,13 @@ def run_quiet(fn, *args, **kw):
     return result, printed.getvalue()
 
 
-def phase_train(torch, work: str) -> tuple[int, int]:
-    """cli.train_ddpm.run on the card, resumed once; returns the forward and
-    backward kernel launches of the first run (the main path)."""
-    import dataclasses
+def make_train_datasets(work: str) -> None:
+    """The 27-class corpus through cli.gen_specs.run (exact rung) on the card,
+    split into <work>/datasets/{train,val}/<class>/; changes into <work>."""
     import shutil
 
     from spectrogramgenai_tpu_torch.audio.export import spec_png_name
-    from spectrogramgenai_tpu_torch.cli import gen_specs, train_ddpm
-    from spectrogramgenai_tpu_torch.cli.common import load_task
-    from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
-    from spectrogramgenai_tpu_torch.core.config import DataConfig, DDPMConfig, RunConfig
-    from spectrogramgenai_tpu_torch.models.vqvae import VQVAE
-    from spectrogramgenai_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
-    from spectrogramgenai_tpu_torch.train.diffusion_task import DiffusionTask
+    from spectrogramgenai_tpu_torch.cli import gen_specs
 
     os.chdir(work)  # datasets/, models/ and results/ under <work>, as the CLIs expect
     t0 = time.perf_counter()
@@ -837,14 +847,243 @@ def phase_train(torch, work: str) -> tuple[int, int]:
     log(f"train: corpus of {len(rows)} clips ({TRAIN_CLASSES} classes × {TRAIN_PER_CLASS} train + "
         f"{VAL_PER_CLASS} val) through cli.gen_specs.run (exact) in {time.perf_counter() - t0:.2f} s")
 
-    vq_cfg = DDPMConfig()
-    vq = VQVAE(hidden_dim=vq_cfg.vq_hidden_dim, n_embeddings=vq_cfg.vq_n_embeddings)
-    vq.reset_parameters(torch.Generator().manual_seed(1))
-    CheckpointManager("models/train_vq").save(0, {"params": vq.state_dict()})
+
+def phase_train_vqvae(torch, cfg=None) -> str:
+    """cli.train_vqvae.run on the card for 2 epochs, then one resumed epoch;
+    returns the checkpoint directory that the DDPM phase starts from."""
+    import dataclasses
+
+    from spectrogramgenai_tpu_torch.cli import train_vqvae
+    from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
+    from spectrogramgenai_tpu_torch.core.config import DataConfig, RunConfig, VQVAEConfig
+    from spectrogramgenai_tpu_torch.train.vqvae_task import VQVAETask
+
+    # the VQVAEConfig defaults: hidden 512, 512 codes, latent 4, 256×256, bf16, batch 16, Adam 2e-4
+    cfg = cfg or VQVAEConfig(run=RunConfig(run_name="smoke_vqvae", seed=0, log_every=1),
+                             data=DataConfig(dataset_path="datasets", batch_size=16), epochs=2)
+    steps_per_epoch = TRAIN_CLASSES * TRAIN_PER_CLASS // cfg.data.batch_size
+    steps = 2 * steps_per_epoch
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    (task, state), printed = run_quiet(train_vqvae.run, cfg, device="cuda")
+    wall = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in printed.splitlines():
+        log(f"train_vqvae run 1: {line}")
+    check(state.step == steps, f"VQ-VAE trained {state.step} steps, {steps} expected")
+    epochs = re.findall(r"epoch (\d+): (\d+) steps in ([\d.]+) s, ([\d.]+) s/step, ([\d.]+) images/s", printed)
+    check(len(epochs) == 2, "two VQ-VAE epoch lines")
+    records = [json.loads(line) for line in open(f"results/{cfg.run.run_name}/metrics.jsonl")]
+    train = [r for r in records if "recon_mse" in r]
+    check(len(train) == steps, f"{steps} logged VQ-VAE steps")
+    for key in ("loss", "recon_mse", "commitment", "codebook", "perplexity"):
+        check(all(math.isfinite(r[key]) for r in train), f"VQ-VAE {key} finite at every step")
+    check(all(r["perplexity"] > 1.0 for r in train), "VQ-VAE perplexity > 1 at every step")
+    vals = [r for r in records if "val_loss" in r]
+    check(len(vals) == 2 and all(math.isfinite(r["val_loss"]) for r in vals), "two finite VQ-VAE val losses")
+    check(os.path.exists(f"results/{cfg.run.run_name}/recon_epoch_001.png"), "reconstruction figure written")
+    init = VQVAETask(cfg, "cpu").init_state()
+    moved = sum(not torch.equal(state.params[k].cpu(), v) for k, v in init.params.items())
+    check(moved >= 0.9 * len(init.params), f"VQ-VAE params changed ({moved} of {len(init.params)} tensors)")
+    check(float(state.stats["codebook.ema_count"].sum()) > 0 and not torch.equal(
+        state.stats["codebook.embedding"].cpu(), init.stats["codebook.embedding"]), "the codebook's EMA moved")
+    log(f"train_vqvae: {steps} steps of batch {cfg.data.batch_size} (hidden {cfg.hidden_dim}, {cfg.n_embeddings} "
+        f"codes, {cfg.data.img_size}×{cfg.data.img_size}, {cfg.compute_dtype}) in {wall:.2f} s wall (with "
+        f"validation and figures); epoch 1 {epochs[1][3]} s/step, {epochs[1][4]} images/s (epoch 0 {epochs[0][3]} "
+        f"s/step); loss {train[0]['loss']:.4f} → {train[-1]['loss']:.4f}, perplexity {train[0]['perplexity']:.2f} "
+        f"→ {train[-1]['perplexity']:.2f}; peak device memory {peak:.2f} GiB")
+
+    # resume: one more epoch from the saved step; the saved state restores exactly
+    (task2, state2), printed = run_quiet(train_vqvae.run, dataclasses.replace(cfg, epochs=1), device="cuda")
+    for line in printed.splitlines():
+        log(f"train_vqvae run 2: {line}")
+    check(f"resumed VQ-VAE from step {steps}" in printed, f"the second VQ-VAE run resumed from step {steps}")
+    check(state2.step == steps + steps_per_epoch, f"resumed VQ-VAE run ended at step {state2.step}")
+    ckpt = CheckpointManager(os.path.join("models", cfg.run.run_name))
+    again = VQVAETask(cfg, "cuda")
+    restored = again.load_state(again.init_state(seed=1), ckpt.restore(steps))
+    check(restored.step == steps, "restored step")
+    for name, got, want in (("params", restored.params, state.params), ("codebook", restored.stats, state.stats),
+                            ("Adam moments", restored.opt_state(), state.opt_state())):
+        check(set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+              f"the checkpoint restores the VQ-VAE's {name} exactly")
+    del task, state, again, restored
+    vqvae_step_split(torch, task2, state2, cfg)
+    del task2, state2
+    torch.cuda.empty_cache()
+    return ckpt.directory
+
+
+def vqvae_step_split(torch, task, state, cfg) -> None:
+    """A VQ-VAE step's split (CUDA events: forward with the codebook update,
+    backward, Adam) on batches already on the card, and its device time by
+    kernel (torch.profiler)."""
+    from spectrogramgenai_tpu_torch.data.pipeline import ImageFolderSource, iterate_batches, to_device
+    from spectrogramgenai_tpu_torch.data.transforms import renorm_m1_1
+    from spectrogramgenai_tpu_torch.train.common import optimizer_update
+
+    # loaded first: a decode in the prefetch thread beside the timed step
+    # holds the interpreter lock against the step's enqueue
+    src = ImageFolderSource("datasets/train", seed=0, img_size=cfg.data.img_size)
+    batches = [to_device(b, torch.device("cuda"))["image"]
+               for b, _ in zip(iterate_batches(src, cfg.data.batch_size, epochs=None), range(7))]
+    module = dict(task.model.named_parameters())
+    working = [module[k] for k in state.params]
+    split = {"forward": [], "backward": [], "optimizer": []}
+    for i, images in enumerate(batches[:6]):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        loss = task._losses(renorm_m1_1(images.float()), train=True)[0]
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        optimizer_update(state.opt, list(state.params.values()), [p.grad.float() for p in working], working)
+        for p in working:
+            p.grad = None
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= 2:  # after warm-up
+            for j, key in enumerate(split):
+                split[key].append(ev[j].elapsed_time(ev[j + 1]))
+    med = {k: statistics.median(v) for k, v in split.items()}
+    log(f"train_vqvae: one step's split (batch {cfg.data.batch_size}, CUDA events, median of 4): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()) + f"; sum {sum(med.values()):.3f} ms")
+    log_profile(torch, "train_vqvae: one step", lambda: task.train_step(state, batches[6]))
+
+
+def phase_classifiers(torch, ddpm_cfg, img_size: int = 256, batch_size: int = 16, gen_per_class: int = 3,
+                      epochs: int = 2) -> None:
+    """Generated images from the trained DDPM, then the classifier sweep on
+    real + synthetic images and its evaluation, through the CLIs; one train
+    step each of the nets the sweep does not train here."""
+    import dataclasses
+
+    from spectrogramgenai_tpu_torch.cli import eval_classifiers, generate, train_classifiers
+    from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
+    from spectrogramgenai_tpu_torch.core.config import ClassifierConfig, DataConfig, RunConfig
+    from spectrogramgenai_tpu_torch.data.manifest import class_names_from_folder
+    from spectrogramgenai_tpu_torch.data.pipeline import ImageFolderSource, device_prefetch, iterate_batches
+    from spectrogramgenai_tpu_torch.train.classifier_task import ClassifierTask
+
+    classes = class_names_from_folder("datasets/train")
+    t0 = time.perf_counter()
+    _, printed = run_quiet(generate.run, ddpm_cfg, "gen_images", gen_per_class, 0, classes, sampler="dpmpp",
+                           num_steps=NUM_STEPS, device="cuda")
+    wall = time.perf_counter() - t0
+    names = os.listdir("gen_images")
+    per_class = {c: sum(bool(re.fullmatch(rf"{c}_gen_imgs_{i}_\d+\.png", n)) for n in names)
+                 for i, c in enumerate(classes)}
+    check(set(per_class.values()) == {gen_per_class} and len(names) == gen_per_class * len(classes),
+          f"cli.generate wrote {gen_per_class} images per class under the naming contract")
+    log(f"classifiers: cli.generate.run wrote {len(names)} images ({gen_per_class} per class, dpmpp-{NUM_STEPS}) "
+        f"in {wall:.2f} s")
+
+    synths = (0, 2)
+    common = ["--val_dir", "datasets/val", "--test_dir", "datasets/val", "--models", "custom,resnet",
+              "--synths", ",".join(map(str, synths)), "--data.img_size", str(img_size),
+              "--data.batch_size", str(batch_size), "--run.output_dir", "sweep", "--device", "cuda"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results, printed = run_quiet(train_classifiers.main, ["--train_dir", "datasets/train", "--gen_dir", "gen_images",
+                                                          "--epochs", str(epochs), *common])
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in printed.splitlines():
+        log(f"classifiers sweep: {line}")
+    n_real = TRAIN_CLASSES * TRAIN_PER_CLASS
+    for model, synth in ((m, s) for m in ("custom", "resnet") for s in synths):
+        tag = f"{model}_synth{synth}"
+        if synth:
+            check(f"{model} synth {synth}: added {synth * TRAIN_CLASSES} generated images to {n_real} real ones"
+                  in printed, f"{tag}: {synth} synthetic images added per class")
+        lines = re.findall(rf"{tag} epoch (\d+): (\d+) steps in ([\d.]+) s, ([\d.]+) images/s, "
+                           r"train_loss=([\d.naif]+) val_acc=([\d.]+)", printed)
+        check(len(lines) == epochs and all(math.isfinite(float(x[4])) for x in lines),
+              f"{tag}: {epochs} epoch lines with finite losses")
+        with open(f"sweep/{tag}/{tag}_metrics.csv", newline="") as f:
+            rows = list(csv.DictReader(f))
+        check([int(r["epoch"]) for r in rows] == list(range(epochs)), f"{tag}: one CSV row per epoch")
+        best = CheckpointManager(f"sweep/ckpt_{tag}")
+        check(best.best_meta() is not None and best.restore(best=True) is not None, f"{tag}: best checkpoint")
+        s_epoch = float(np.mean([float(x[2]) for x in lines[1:]]))
+        log(f"classifiers {tag}: {s_epoch:.3f} s/epoch (epoch 0 {lines[0][2]} s), {lines[-1][3]} images/s, "
+            f"{lines[-1][1]} steps of batch {batch_size} at {img_size}×{img_size}; best val acc "
+            f"{results[(model, synth)]:.4f} (epoch {best.best_meta()['step']})")
+    log(f"classifiers sweep: 4 runs of {epochs} epochs in {wall:.2f} s wall; peak device memory {peak:.2f} GiB")
+
+    # ResNet18's frozen prefix: bit-equal to its initial values; its BatchNorm statistics moved
+    cfg = ClassifierConfig(run=RunConfig(run_name="classifiers", output_dir="sweep"), model_name="resnet",
+                           num_classes=TRAIN_CLASSES, data=DataConfig(img_size=img_size, batch_size=batch_size))
+    task = ClassifierTask(cfg, "cpu")
+    init = task.init_state()
+    saved = CheckpointManager("sweep/ckpt_resnet_synth2").restore(best=True)["params"]
+    frozen = [k for k, flag in task.mask.items() if not flag]
+    check(frozen and all(torch.equal(saved[k], init.params[k]) for k in frozen),
+          f"ResNet18's {len(frozen)} frozen tensors bit-equal to their initial values")
+    check(all(not torch.equal(saved[k], v) for k, v in init.stats.items()), "ResNet18's running statistics moved")
+    del task, init
+
+    # one train step each of VGG16, MobileNetV2 and the ensemble at full size
+    src = ImageFolderSource("datasets/train", seed=0, img_size=img_size)
+    batch = next(device_prefetch(iterate_batches(src, batch_size), torch.device("cuda")))
+    for model in ("vgg", "mobilenet", "ensemble"):
+        torch.cuda.reset_peak_memory_stats()
+        task = ClassifierTask(dataclasses.replace(cfg, model_name=model), "cuda")
+        state = task.init_state()
+        before = {k: v.clone() for k, v in state.params.items()}
+        times, losses = [], []
+        for _ in range(3):  # the first warms up
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = task.train_step(state, batch["image"], batch["label"])
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            losses.append(float(m["train_loss"]))
+        check(all(math.isfinite(x) for x in losses), f"{model}: finite train losses")
+        frozen = [k for k, flag in task.mask.items() if not flag]
+        check(all(torch.equal(state.params[k], before[k]) for k in frozen), f"{model}: frozen params unchanged")
+        check(any(not torch.equal(state.params[k], before[k]) for k, flag in task.mask.items() if flag),
+              f"{model}: trainable params moved")
+        n_params = sum(v.numel() for v in state.params.values())
+        log(f"classifiers {model}: one train step (batch {batch_size}, {img_size}×{img_size}, {cfg.compute_dtype}, "
+            f"{n_params / 1e6:.1f} M params, {sum(task.mask.values())} of {len(task.mask)} tensors trained) "
+            f"{statistics.median(times[1:]):.3f} ms (CUDA events, median of 2 after a warm-up); losses "
+            + ", ".join(f"{x:.4f}" for x in losses)
+            + f"; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del task, state, before
+        torch.cuda.empty_cache()
+
+    # the best checkpoints, evaluated again through the evaluation CLI
+    rows, printed = run_quiet(eval_classifiers.main, ["--out_dir", "eval", *common])
+    check(len(rows) == 4, f"cli.eval_classifiers evaluated {len(rows)} of 4 best checkpoints")
+    for row in rows:
+        want = results[(row["model"], row["synth"])]
+        check(all(math.isfinite(row[k]) for k in ("val_accuracy", "val_f1", "test_loss")), "finite eval metrics")
+        check(abs(row["val_accuracy"] - want) <= 0.02, f"{row['model']}_synth{row['synth']}: the best checkpoint "
+                                                        f"evaluates to {row['val_accuracy']:.4f} (kept at {want:.4f})")
+        log(f"classifiers eval {row['model']}_synth{row['synth']}: val accuracy {row['val_accuracy']:.4f}, "
+            f"macro F1 {row['val_f1']:.4f}, top-3 {row['val_top3_acc']:.4f}")
+    check(len(os.listdir("eval")) == 5, "eval_results.csv and four classification reports")
+
+
+def phase_train(torch, vqae_ckpt: str) -> tuple[tuple[int, int], object]:
+    """cli.train_ddpm.run on the card from the VQ-VAE checkpoint ``vqae_ckpt``,
+    resumed once; returns the forward and backward kernel launches of the
+    first run (the main path) and the config."""
+    import dataclasses
+
+    from spectrogramgenai_tpu_torch.cli import train_ddpm
+    from spectrogramgenai_tpu_torch.cli.common import load_task, restore
+    from spectrogramgenai_tpu_torch.core.config import DataConfig, DDPMConfig, RunConfig
+    from spectrogramgenai_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
+    from spectrogramgenai_tpu_torch.train.diffusion_task import DiffusionTask
+
+    vq_params = restore(vqae_ckpt, "VQ-VAE")["params"]  # the VQ-VAE that phase_train_vqvae trained
     cfg = DDPMConfig(run=RunConfig(run_name="smoke_train", seed=0, log_every=1, ckpt_every_epochs=1),
                      data=DataConfig(dataset_path="datasets", batch_size=TRAIN_BATCH),
-                     vqae_ckpt="models/train_vq", epochs=2, log_every_epoch=1)
-    steps_per_epoch = TRAIN_CLASSES * TRAIN_PER_CLASS // TRAIN_BATCH
+                     vqae_ckpt=vqae_ckpt, epochs=2, log_every_epoch=1)
+    steps_per_epoch = TRAIN_CLASSES * TRAIN_PER_CLASS // cfg.data.batch_size
 
     torch.cuda.reset_peak_memory_stats()
     fused_attention.launches = fused_attention.mma_launches = fused_attention_bwd.launches = 0  # the main path starts
@@ -867,7 +1106,7 @@ def phase_train(torch, work: str) -> tuple[int, int]:
     losses = [r["train_mse"] for r in records if "train_mse" in r]
     check(len(losses) == steps and all(math.isfinite(x) for x in losses), f"{steps} finite train losses")
     check(sum("val_mse" in r and math.isfinite(r["val_mse"]) for r in records) == 2, "two finite val losses")
-    init_params = DiffusionTask(cfg, "cpu", vq_params=vq.state_dict()).init_state(cfg.run.seed).params
+    init_params = DiffusionTask(cfg, "cpu", vq_params=vq_params).init_state(cfg.run.seed).params
     moved = sum(not torch.equal(state.params[k].cpu(), v) for k, v in init_params.items())
     check(moved >= 0.9 * len(init_params), f"params changed ({moved} of {len(init_params)} tensors)")
     want = 3 * steps
@@ -876,7 +1115,7 @@ def phase_train(torch, work: str) -> tuple[int, int]:
     check(mma_launches == launches[0], f"every forward attention launch of the run on the tensor-core route "
                                        f"({mma_launches} of {launches[0]})")
     s_per_step = float(np.mean([float(e[3]) for e in epochs[1:]]))
-    log(f"train: {steps} steps of batch {TRAIN_BATCH} in {wall:.2f} s wall (with encode, validation, previews, "
+    log(f"train: {steps} steps of batch {cfg.data.batch_size} in {wall:.2f} s wall (with encode, validation, previews, "
         f"checkpoints); epoch 1 {epochs[1][3]} s/step, {epochs[1][4]} images/s (epoch 0 {epochs[0][3]} s/step); "
         f"latent cache encode {encode.group(2)} s for {encode.group(1)} images; losses {losses[0]:.4f} → "
         f"{losses[-1]:.4f}; peak device memory {peak:.2f} GiB; attention launches fwd {launches[0]} "
@@ -903,7 +1142,7 @@ def phase_train(torch, work: str) -> tuple[int, int]:
     del task, state, state2
     torch.cuda.empty_cache()
     train_step_checks(torch, cfg, s_per_step)
-    return launches
+    return launches, cfg
 
 
 def train_step_checks(torch, cfg, s_per_step: float) -> None:
@@ -924,10 +1163,10 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
     state = task.init_state(0)
     src = LatentCacheSource(ImageFolderSource("datasets/train", seed=0, img_size=cfg.img_size), task.make_encoder(),
                             dev)
-    batch = next(device_prefetch(iterate_batches(src, TRAIN_BATCH), dev))
+    batch = next(device_prefetch(iterate_batches(src, cfg.data.batch_size), dev))
     x, y = batch["latent"], batch["label"]
     gen = torch.Generator(device="cuda").manual_seed(5)
-    t = torch.randint(1, cfg.noise_steps, (TRAIN_BATCH,), device="cuda", generator=gen)
+    t = torch.randint(1, cfg.noise_steps, (len(y),), device="cuda", generator=gen)
     noise = torch.randn(x.shape, device="cuda", generator=gen)
     keep = torch.tensor(1.0, device="cuda")
 
@@ -936,8 +1175,8 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
             if isinstance(m, SpatialSelfAttention):
                 m.fused = fused
         module = dict(task.model.named_parameters())
-        loss, grads = microbatch_accumulate(
-            lambda mb: diffusion_loss(task.model, task.schedule, x, y, t=t, noise=noise, keep=keep), [{}],
+        loss, grads, _ = microbatch_accumulate(
+            lambda mb: (diffusion_loss(task.model, task.schedule, x, y, t=t, noise=noise, keep=keep), {}), [{}],
             [module[k] for k in state.params])
         return loss.item(), grads
 
@@ -960,7 +1199,7 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
     module = dict(task.model.named_parameters())
     working = [module[k] for k in state.params]
     masters = list(state.params.values())
-    batches = device_prefetch(iterate_batches(src, TRAIN_BATCH, epochs=None), dev)
+    batches = device_prefetch(iterate_batches(src, cfg.data.batch_size, epochs=None), dev)
     split = {"data": [], "forward": [], "backward": [], "optimizer": [], "ema": []}
     for i in range(6):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
@@ -988,7 +1227,7 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
             for j, key in enumerate(split):
                 split[key].append(ev[j].elapsed_time(ev[j + 1]))
     med = {k: statistics.median(v) for k, v in split.items()}
-    log(f"train: one step's split (batch {TRAIN_BATCH}, CUDA events, median of 4): "
+    log(f"train: one step's split (batch {cfg.data.batch_size}, CUDA events, median of 4): "
         + ", ".join(f"{k} {v:.3f} ms" for k, v in med.items()) + f"; sum {sum(med.values()):.3f} ms "
         f"against {1e3 * s_per_step:.1f} ms per step in the run")
 
@@ -1073,7 +1312,10 @@ def main() -> int:
         mel_launches = phase_gen_specs(torch, work)
     bwd = phase_attention_bwd(torch, attn)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as work:
-        train_launches = phase_train(torch, work)
+        make_train_datasets(work)
+        vqae_ckpt = phase_train_vqvae(torch)
+        train_launches, ddpm_cfg = phase_train(torch, vqae_ckpt)
+        phase_classifiers(torch, ddpm_cfg)
         os.chdir(REPO)
 
     kernels = [{"name": "attention_fwd", "route": "cuda",

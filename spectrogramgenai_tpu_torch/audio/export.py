@@ -87,6 +87,27 @@ def save_generated_pngs(imgs_uint8: np.ndarray, paths: list[str]) -> None:
         _write_png(rgb, path)
 
 
+def save_panel_grid(rows: list[list[np.ndarray]], path: str, gap: int = 4) -> None:
+    """Write a grid of 2-D float panels as one viridis PNG: each panel scaled
+    by its own min and max and drawn with row 0 at the bottom (matplotlib's
+    ``imshow(origin="lower")``), enlarged by the largest whole factor that
+    fits the grid's cell (the largest panel), centred in it, on white, with
+    ``gap`` pixels between cells. The figure has no titles."""
+    cell_h = max(p.shape[0] for row in rows for p in row)
+    cell_w = max(p.shape[1] for row in rows for p in row)
+    n_cols = max(len(row) for row in rows)
+    canvas = np.full((len(rows) * (cell_h + gap) - gap, n_cols * (cell_w + gap) - gap, 3), 255, np.uint8)
+    for r, row in enumerate(rows):
+        for c, panel in enumerate(row):
+            panel = np.asarray(panel, np.float64)
+            f = max(1, min(cell_h // panel.shape[0], cell_w // panel.shape[1]))
+            rgb = spectrogram_rgb(panel[None, ::-1])[0].repeat(f, axis=0).repeat(f, axis=1)
+            top = r * (cell_h + gap) + (cell_h - rgb.shape[0]) // 2
+            left = c * (cell_w + gap) + (cell_w - rgb.shape[1]) // 2
+            canvas[top:top + rgb.shape[0], left:left + rgb.shape[1]] = rgb
+    _write_png(canvas, path)
+
+
 def spec_png_name(file_name: str, begin_time: float) -> str:
     """The reference's spectrogram file key, ``{file}_{begin}_{begin}.png``."""
     b = int(begin_time)

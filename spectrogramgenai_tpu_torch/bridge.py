@@ -13,11 +13,18 @@ The port's modules repeat the flax module names, so a flax parameter path
     kernel flipped in space: flax's default ``transpose_kernel=False`` is a
     fractionally strided convolution, not torch's adjoint convolution;
   * the ``codebook`` collection (``embedding``, ``ema_count``,
-    ``ema_weight``) → the codebook's buffers.
+    ``ema_weight``) → the codebook's buffers;
+  * ``BatchNorm`` ``scale`` / ``bias`` → ``weight`` / ``bias``, and its
+    ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``;
+  * a depthwise conv (``feature_group_count`` = channels, kernel
+    (kh, kw, 1, C)) → (C, 1, kh, kw), the same HWIO → OIHW transpose;
+  * the first Dense after a flatten needs no permutation: the port's
+    classifiers flatten NHWC, as flax does.
 
 Inputs are nested dicts of array-likes (numpy arrays, or anything
-``np.asarray`` accepts), as flax variables are: ``{"params": …}`` and, for
-the VQ-VAE, ``{"params": …, "codebook": …}``.
+``np.asarray`` accepts), as flax variables are: ``{"params": …}``, for the
+VQ-VAE ``{"params": …, "codebook": …}``, for a classifier with BatchNorm
+``{"params": …, "batch_stats": …}``.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from spectrogramgenai_tpu_torch.models.classifiers import BatchNorm
 from spectrogramgenai_tpu_torch.models.vqvae import VQEmbeddingEMA
 
 
@@ -50,6 +58,11 @@ def state_dict_from_flax(module: nn.Module, variables: dict) -> dict[str, torch.
             cb = _subtree(variables["codebook"], path)
             for buf in ("embedding", "ema_count", "ema_weight"):
                 out[prefix + buf] = _t(cb[buf])
+            continue
+        if isinstance(m, BatchNorm):
+            p, st = _subtree(variables["params"], path), _subtree(variables["batch_stats"], path)
+            out.update({prefix + "weight": _t(p["scale"]), prefix + "bias": _t(p["bias"]),
+                        prefix + "running_mean": _t(st["mean"]), prefix + "running_var": _t(st["var"])})
             continue
         if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.Embedding,
                               nn.GroupNorm, nn.LayerNorm)):

@@ -1,11 +1,12 @@
-"""Typed configuration for the port's slice: run, data and DDPM configs plus
-CLI overrides.
+"""Typed configuration for the port's slices: run, data, DDPM, VQ-VAE and
+classifier configs plus CLI overrides.
 
 A copy of the same classes in ``spectrogramgenai_tpu/core/config.py``, with
 the same field names and defaults (a test holds them equal), so that a flag
 means the same in both packages. The mesh and sharding fields of
 ``RunConfig`` are kept for that reason; the port runs on one device and
-ignores them. The other workloads' configs come with their slices.
+ignores them. The other workloads' configs (ACGAN, the denoiser) come with
+their slices.
 """
 
 from __future__ import annotations
@@ -86,6 +87,45 @@ class DDPMConfig:
     compute_dtype: str = "bfloat16"  # replaces fp16 autocast + GradScaler
     grad_accum: int = 1            # microbatches per optimizer update (training)
     cache_latents: bool = True     # train from pre-encoded latents (training)
+
+
+@dataclasses.dataclass(frozen=True)
+class VQVAEConfig:
+    """VQ-VAE with EMA codebook (``cli/train_vqvae.py``)."""
+
+    run: RunConfig = RunConfig(run_name="vqvae")
+    data: DataConfig = DataConfig(batch_size=16)
+    epochs: int = 10
+    input_dim: int = 1
+    hidden_dim: int = 512
+    latent_dim: int = 4
+    n_embeddings: int = 512
+    commitment_cost: float = 0.25
+    ema_decay: float = 0.999
+    ema_eps: float = 1e-5
+    lr: float = 2e-4               # Adam
+    compute_dtype: str = "bfloat16"
+    grad_accum: int = 1            # microbatches per optimizer update
+
+
+@dataclasses.dataclass(frozen=True)
+class ClassifierConfig:
+    """Classifier sweep (``cli/train_classifiers.py``)."""
+
+    run: RunConfig = RunConfig(run_name="classifiers")
+    data: DataConfig = DataConfig(batch_size=16)
+    model_name: str = "custom"     # resnet|vgg|mobilenet|custom|ensemble
+    num_classes: int = 27
+    epochs: int = 25
+    lr: float = 1e-3               # Adam
+    synthetic_per_class: int = 0   # sweep {0,50,100,150,200,250}
+    synthetic_cap: int = 250       # only generated images with index < 250
+    knowledge_dist: bool = False
+    kd_temperature: float = 3.0
+    kd_alpha: float = 0.7
+    use_denoiser: bool = False     # the denoiser is not ported: True raises
+    compute_dtype: str = "bfloat16"
+    grad_accum: int = 1            # microbatches per optimizer update
 
 
 def _flatten_fields(cls, prefix=""):

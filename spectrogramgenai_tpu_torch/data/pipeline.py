@@ -105,6 +105,12 @@ class ImageFolderSource(_DecodedCache):
         self.rng.shuffle(idx)
         return idx
 
+    def epoch_size(self) -> int:
+        """The length of :meth:`epoch_indices`, without drawing one."""
+        if self.bootstrap_balance:
+            return len(np.unique(self.labels)) * int(np.bincount(self.labels).max())
+        return len(self.paths)
+
     def _target_hw(self) -> tuple[int, int]:
         if self.img_size:
             return self.img_size, self.img_size

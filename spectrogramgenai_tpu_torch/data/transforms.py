@@ -1,4 +1,5 @@
-"""On-device batch transforms (torch, NHWC), after ``spectrogramgenai_tpu/data/transforms.py``."""
+"""On-device batch transforms (torch, NHWC), after ``spectrogramgenai_tpu/data/transforms.py``
+(its bilinear resize is not ported)."""
 
 from __future__ import annotations
 
@@ -15,3 +16,14 @@ def renorm_m1_1(x: torch.Tensor) -> torch.Tensor:
     y = (x - mn) / m
     sign = torch.where(m >= 0, 1.0, -1.0).to(x.dtype)
     return sign * 2.0 * (y - 0.5)
+
+
+def expand_channels(x: torch.Tensor, n_channels: int) -> torch.Tensor:
+    """(B, H, W, 1) → (B, H, W, n) by repetition; n channels → 1 by their mean."""
+    if x.shape[-1] == n_channels:
+        return x
+    if x.shape[-1] == 1:
+        return x.expand(*x.shape[:-1], n_channels)
+    if n_channels == 1:
+        return x.mean(dim=-1, keepdim=True)
+    raise ValueError(f"cannot adapt {x.shape[-1]} channels to {n_channels}")

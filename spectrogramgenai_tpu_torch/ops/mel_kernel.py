@@ -23,6 +23,10 @@ The plain version rounds its operands exactly as the kernels do, so kernel
 and plain version differ only by the order of summation (for the exact
 rung: an FFT's order against ``torch.fft.rfft``'s, both in float64), and
 each rung's error against the float64 oracle can be tested on the CPU.
+For "high" the plain version sums its three products in float64 and rounds
+to float32 where the kernel stores a float32 value (re, im, the power, the
+output): at n_fft 4096 float32 sums of its own would differ from the plan
+by more than the kernel's.
 """
 
 from __future__ import annotations
@@ -69,22 +73,27 @@ def _bf16(a: torch.Tensor) -> torch.Tensor:
     return a.to(torch.bfloat16).float()
 
 
+def _bf16_3x(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the "high" rung's three products a_hi·b_hi + a_hi·b_lo + a_lo·b_hi,
+    summed in float64 (each bf16 part and each product of two is exact
+    there) and rounded once to float32, where the kernel stores the value."""
+    ah, al = (t.double() for t in split_bf16(a))
+    bh, bl = (t.double() for t in split_bf16(b))
+    return (ah @ bh + ah @ bl + al @ bh).float()
+
+
 def _dft_product(frames: torch.Tensor, w: torch.Tensor, rung: str) -> torch.Tensor:
     """frames @ w, with the operands rounded and the products taken as the rung's kernel does."""
     if rung == "fast":
         return _bf16(frames) @ _bf16(w)
-    fh, fl = (t.float() for t in split_bf16(frames))
-    wh, wl = (t.float() for t in split_bf16(w))
-    return fh @ wh + (fh @ wl + fl @ wh)
+    return _bf16_3x(frames, w)
 
 
 def _mel_product(power: torch.Tensor, fb_t: torch.Tensor, rung: str) -> torch.Tensor:
     """power @ fbᵀ in float32, rounded as the rung's kernel rounds it."""
     if rung == "fast":
         return _bf16(power) @ _bf16(fb_t)
-    ph, pl = (t.float() for t in split_bf16(power))
-    fh, fl = (t.float() for t in split_bf16(fb_t))
-    return ph @ fh + (ph @ fl + pl @ fh)
+    return _bf16_3x(power, fb_t)
 
 
 @functools.lru_cache(maxsize=16)

@@ -5,7 +5,8 @@ The schedule is a copy of optax's ``cosine_onecycle_schedule`` as a plain
 function of the step, not torch's ``OneCycleLR`` (whose phase ends differ).
 AdamW is ``torch.optim.AdamW``: b1 0.9, b2 0.999, eps outside the square
 root, weight decay decoupled and scaled by the scheduled lr, which is the
-update ``optax.adamw`` computes. The JAX module's mesh sharding rules are TPU
+update ``optax.adamw`` computes; Adam is ``torch.optim.Adam``, the update of
+``optax.adam``. The JAX module's mesh sharding rules are TPU
 code and are not here: the port trains on one device.
 """
 
@@ -37,6 +38,11 @@ def onecycle_lr(step: int, total_steps: int, peak_value: float, pct_start: float
     return float(values[-1])
 
 
+def make_adam(params: list[torch.Tensor], lr: float) -> torch.optim.Adam:
+    """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 outside the square root."""
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
 def make_adamw_onecycle(params: list[torch.Tensor], max_lr: float, total_steps: int, eps: float = 1e-5,
                         weight_decay: float = 0.01) -> tuple[torch.optim.AdamW, Callable[[int], float]]:
     """AdamW over ``params`` and its lr schedule; the caller sets the lr of
@@ -62,28 +68,50 @@ def microbatch_split(batch: dict[str, torch.Tensor], k: int) -> list[dict[str, t
     return out
 
 
-def microbatch_accumulate(loss_fn: Callable[[dict], torch.Tensor], microbatches: list[dict],
-                          params: list[torch.Tensor]) -> tuple[torch.Tensor, list[torch.Tensor]]:
+def microbatch_accumulate(loss_fn: Callable[[dict], tuple[torch.Tensor, dict[str, torch.Tensor]]],
+                          microbatches: list[dict], params: list[torch.Tensor]
+                          ) -> tuple[torch.Tensor, list[torch.Tensor], dict[str, torch.Tensor]]:
     """Run ``loss_fn`` and its backward on each microbatch in turn (only one
-    microbatch's activations are live at a time) and return the mean loss and
-    the mean float32 gradient of each of ``params``: the caller makes ONE
-    optimizer update, one schedule tick, for the whole batch."""
+    microbatch's activations are live at a time) and return the mean loss,
+    the mean float32 gradient of each of ``params`` and the mean of each of
+    the auxiliary scalars (loss terms, accuracy …) that ``loss_fn`` returns
+    beside its loss: the caller makes ONE optimizer update, one schedule
+    tick, for the whole batch. State that the forward updates in place (the
+    VQ-VAE's codebook, BatchNorm's running statistics) threads through the
+    microbatches in order, as the JAX scan's carry does."""
     k = len(microbatches)
-    total, grads = None, None
+    total, grads, aux = None, None, {}
     for mb in microbatches:
         for p in params:
             p.grad = None
-        loss = loss_fn(mb)
+        loss, out = loss_fn(mb)
         loss.backward()
         g = [p.grad.float() for p in params]  # a fresh .grad each microbatch: no copy needed
+        out = {name: v.detach() for name, v in out.items()}
         if grads is None:
-            total, grads = loss.detach(), g
+            total, grads, aux = loss.detach(), g, out
         else:
             total = total + loss.detach()
             torch._foreach_add_(grads, g)
+            aux = {name: aux[name] + v for name, v in out.items()}
     for p in params:
         p.grad = None
     if k > 1:
         total = total / k
         torch._foreach_div_(grads, float(k))
-    return total, grads
+        aux = {name: v / k for name, v in aux.items()}
+    return total, grads, aux
+
+
+def optimizer_update(opt: torch.optim.Optimizer, masters: list[torch.Tensor], grads: list[torch.Tensor],
+                     working: list[torch.Tensor]) -> None:
+    """One update of the float32 ``masters`` from the working copy's float32
+    ``grads``, then the working copy (``working``, the module's parameters,
+    in its compute dtype) refreshed from the masters."""
+    for m, g in zip(masters, grads, strict=True):
+        m.grad = g
+    opt.step()
+    for m in masters:
+        m.grad = None
+    with torch.no_grad():
+        torch._foreach_copy_(working, masters)

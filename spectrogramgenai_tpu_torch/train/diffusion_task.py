@@ -39,6 +39,7 @@ from spectrogramgenai_tpu_torch.train.common import (
     make_adamw_onecycle,
     microbatch_accumulate,
     microbatch_split,
+    optimizer_update,
 )
 from spectrogramgenai_tpu_torch.train.state import TrainState
 
@@ -140,26 +141,19 @@ class DiffusionTask:
             for mb, flag in zip(microbatches, torch.as_tensor(keep).reshape(k), strict=True):
                 mb["keep"] = flag
 
-        def loss_fn(mb: dict) -> torch.Tensor:
+        def loss_fn(mb: dict) -> tuple[torch.Tensor, dict]:
             x = mb["x"] if encoded else self.encode(mb["x"])
             return diffusion_loss(self.model, self.schedule, x, mb["y"], label_drop=self.cfg.label_drop,
                                   generator=state.generator, t=mb.get("t"), noise=mb.get("noise"),
-                                  keep=mb.get("keep"))
+                                  keep=mb.get("keep")), {}
 
         module = dict(self.model.named_parameters())
         working = [module[name] for name in state.params]
-        loss, grads = microbatch_accumulate(loss_fn, microbatches, working)
-        masters = list(state.params.values())
-        for m, g in zip(masters, grads):
-            m.grad = g
+        loss, grads, _ = microbatch_accumulate(loss_fn, microbatches, working)
         for group in state.opt.param_groups:
             group["lr"] = self.lr(state.step)
-        state.opt.step()
-        for m in masters:
-            m.grad = None
+        optimizer_update(state.opt, list(state.params.values()), grads, working)
         ema_update(state.ema_params, state.params, state.step, self.cfg.ema_beta, self.cfg.ema_start)
-        with torch.no_grad():
-            torch._foreach_copy_(working, masters)  # refresh the working copy
         state.step += 1
         return state, {"train_mse": loss}
 

@@ -267,19 +267,11 @@ def test_mel_kernel_matches_plain_version_and_oracle(gen, exact, sr, batch, n):
         assert err[3::4].max() <= typical, err
 
 
-# "high" at n_fft 4096 reads 3.362e-3 against its plain version on an H100
-# (MEL_TOL 3e-3 was set at n_fft 2048). The earlier mel kernel reads the same;
-# against the same rounding plan summed in float64 the kernel reads 1.26e-4
-# and the plain version 3.35e-3, so the plain version's f32 sums carry it
-# (tools/port_ab.py --phases mel_shapes, PERF.md §6)
-_HIGH_4096 = pytest.mark.xfail(strict=True, reason="high at n_fft 4096 reads 3.362e-3 > MEL_TOL 3e-3: the plain "
-                                                   "version's f32 sums, 3.35e-3 from the plan in float64")
-
-
 @pytest.mark.parametrize("exact, n_fft, hop, n_mels, tiles", [
     (exact, *shape) for shape in [(64, 16, 16, (96, 96)), (64, 48, 20, (96, 96)), (2048, 512, 256, (64, 96)),
-                                  (2048, 1024, 256, (32, 64))] for exact in ("high", False)
-] + [pytest.param("high", 4096, 384, 256, (96, 96), marks=_HIGH_4096), (False, 4096, 384, 256, (96, 96))])
+                                  (2048, 1024, 256, (32, 64)), (4096, 384, 256, (96, 96))]
+    for exact in ("high", False)
+])
 def test_mma_mel_kernel_at_other_shapes_and_tiles(gen, exact, n_fft, hop, n_mels, tiles):
     # the small shapes of the CPU mirror, audio spans too wide for a 96-frame
     # tile, and the longest DFT the front end takes
@@ -323,3 +315,54 @@ def test_mel_wrapper_rejects_what_the_kernel_does_not_take(gen):
     fused_mel_power(audio, cfg)
     fused_mel_power(audio, cfg, exact=False)
     assert fused_mel_power.launches == before + 2
+
+
+def _vqvae_steps(device: str, images: list[np.ndarray]):
+    from spectrogramgenai_tpu_torch.core.config import VQVAEConfig
+    from spectrogramgenai_tpu_torch.train.vqvae_task import VQVAETask
+
+    task = VQVAETask(VQVAEConfig(hidden_dim=32, n_embeddings=32, compute_dtype="float32"), device)
+    state = task.init_state(0)
+    for x in images:
+        state, m = task.train_step(state, torch.from_numpy(x).to(device))
+    return state, {k: float(v) for k, v in m.items()}
+
+
+def test_vqvae_float32_steps_on_the_card_match_the_cpu(gen):
+    # the same three float32 steps (convolutions in full float32, TF32 off),
+    # codebook included, on the card and on the CPU: float32 sums in another
+    # order, the train-state tolerance of tests/test_torch_vqvae_train.py
+    rng = np.random.default_rng(0)
+    images = [rng.uniform(0, 1, (8, 64, 64, 1)).astype(np.float32) for _ in range(3)]
+    card, m_card = _vqvae_steps("cuda", images)
+    cpu, m_cpu = _vqvae_steps("cpu", images)
+    for k in m_cpu:
+        assert m_card[k] == pytest.approx(m_cpu[k], rel=1e-4), k
+    for name in ("params", "stats"):
+        for k, v in getattr(cpu, name).items():
+            np.testing.assert_allclose(getattr(card, name)[k].cpu().numpy(), v.numpy(), rtol=1e-4, atol=5e-5,
+                                       err_msg=k)
+
+
+def test_classifier_float32_step_on_the_card_matches_the_cpu(gen):
+    # one ResNet18 step (frozen prefix, BatchNorm batch statistics) on the card and on the CPU
+    from spectrogramgenai_tpu_torch.core.config import ClassifierConfig, DataConfig
+    from spectrogramgenai_tpu_torch.train.classifier_task import ClassifierTask
+
+    rng = np.random.default_rng(1)
+    images = rng.uniform(0, 1, (8, 64, 64, 1)).astype(np.float32)
+    labels = rng.integers(0, 5, 8)
+    out = {}
+    for device in ("cuda", "cpu"):
+        task = ClassifierTask(ClassifierConfig(model_name="resnet", num_classes=5, compute_dtype="float32",
+                                               data=DataConfig(img_size=64)), device)
+        state = task.init_state(0)
+        state, m = task.train_step(state, torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device))
+        out[device] = (state, float(m["train_loss"]), task.mask)
+    (card, loss_card, mask), (cpu, loss_cpu, _) = out["cuda"], out["cpu"]
+    assert loss_card == pytest.approx(loss_cpu, rel=1e-5)
+    for k, v in cpu.stats.items():
+        np.testing.assert_allclose(card.stats[k].cpu().numpy(), v.numpy(), rtol=1e-4, atol=5e-5, err_msg=k)
+    for k, v in cpu.params.items():
+        if not mask[k]:  # frozen: bit-equal on both
+            assert torch.equal(card.params[k].cpu(), v), k

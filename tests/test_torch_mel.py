@@ -223,9 +223,10 @@ EMU_CFGS = [  # small shapes: a partial second tile, a hop that does not divide 
 def test_kernel_mirror_matches_plain_version(cfg, n, exact, tol):
     # per element, down to 80 dB under each clip's max. The mirrors sum in
     # float64; the plain version sums in float64 for the exact rung (the
-    # FFT mirror and rfft then differ by float64 rounding only) and in
-    # float32 for the others: 1.4e-5 high; "fast" rounds the power to bf16,
-    # which can flip on that difference (2⁻⁸ of one term)
+    # FFT mirror and rfft then differ by float64 rounding only), in float64
+    # with float32 stores of re, im and the power for "high" (1.42e-5 at
+    # most), and in float32 for "fast", which rounds the power to bf16 and
+    # can flip on that difference (2⁻⁸ of one term)
     rng = np.random.default_rng(8)
     audio = (rng.standard_normal((2, n)) * np.exp(rng.uniform(-3, 0, (2, 1)))).astype(np.float32)
     want = tkernel.mel_power_reference(_t(audio), cfg, exact).numpy()

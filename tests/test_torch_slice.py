@@ -268,7 +268,7 @@ def test_viridis_lut_matches_jax():
     np.testing.assert_array_equal(VIRIDIS_LUT, _viridis_lut())
 
 
-@pytest.mark.parametrize("name", ["RunConfig", "DataConfig", "DDPMConfig"])
+@pytest.mark.parametrize("name", ["RunConfig", "DataConfig", "DDPMConfig", "VQVAEConfig", "ClassifierConfig"])
 def test_config_fields_and_defaults_match_jax(name):
     jcls, tcls = getattr(jc, name), getattr(tc, name)
     assert [f.name for f in dataclasses.fields(tcls)] == [f.name for f in dataclasses.fields(jcls)]

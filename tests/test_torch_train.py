@@ -168,9 +168,9 @@ def test_first_step_gradients_match_jax():
                                      jt.cfg.label_drop)))(jstate.params)})
     module = dict(task.model.named_parameters())
     xt = task.encode(torch.from_numpy(images))
-    _, grads = microbatch_accumulate(
-        lambda mb: diffusion_loss(task.model, task.schedule, xt, torch.from_numpy(labels).long(), t=t,
-                                  noise=noise, keep=keep[0]), [{}], [module[n] for n in state.params])
+    _, grads, _ = microbatch_accumulate(
+        lambda mb: (diffusion_loss(task.model, task.schedule, xt, torch.from_numpy(labels).long(), t=t,
+                                   noise=noise, keep=keep[0]), {}), [{}], [module[n] for n in state.params])
     scale = max(w.norm().item() for w in want.values())
     for name, g in zip(state.params, grads):
         w = want[name]

@@ -30,7 +30,8 @@ def random_flax_variables(module, *init_args, seed: int = 0) -> dict:
     numpy seed: kernels normal(0, 1/√fan_in), biases and norm offsets
     normal(0, 0.1) so that every bias mapping of the bridge is exercised,
     norm scales 1 + normal(0, 0.1), embeddings normal(0, 1), a codebook
-    uniform(-1/M, 1/M) with ema_weight equal to it.
+    uniform(-1/M, 1/M) with ema_weight equal to it, BatchNorm running means
+    normal(0, 0.1) and variances uniform(0.5, 1.5).
     """
     rng = np.random.default_rng(seed)
     shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *init_args)
@@ -50,6 +51,10 @@ def random_flax_variables(module, *init_args, seed: int = 0) -> dict:
                 v = 0.1 * rng.standard_normal(shape)
             elif name == "scale":
                 v = 1.0 + 0.1 * rng.standard_normal(shape)
+            elif name == "var":  # BatchNorm's running variance
+                v = rng.uniform(0.5, 1.5, shape)
+            elif name == "mean":  # BatchNorm's running mean
+                v = 0.1 * rng.standard_normal(shape)
             else:
                 v = rng.standard_normal(shape)
             out[name] = v.astype(np.float32)

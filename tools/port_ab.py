@@ -103,7 +103,11 @@ for phase in sys.argv[2].split(","):
         cs.phase_attention_bwd(torch, attn)
     elif phase == "train":
         with tempfile.TemporaryDirectory(prefix="port_ab_") as work:
-            cs.phase_train(torch, work)
+            if hasattr(cs, "phase_train_vqvae"):  # the DDPM starts from a VQ-VAE that the checkout trains
+                cs.make_train_datasets(work)
+                cs.phase_train(torch, cs.phase_train_vqvae(torch))
+            else:
+                cs.phase_train(torch, work)
             os.chdir(repo)
     elif phase == "mel_shapes":
         mel_shapes(torch)
