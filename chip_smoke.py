@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path, mel front end and training loop once on one NVIDIA GPU.
+"""Drive the PyTorch port's serving path, mel front end and training loops once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -102,6 +102,33 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 the generated images (finite, ≥ 0) and of val against itself
                 (near 0); the features' images/s; the classifier's features
                 on the card against the CPU's at float32 (TF32 off).
+ 12. acgan    — cli.train_acgan.run on the 27-class corpus at the ACGANConfig
+                defaults (generator 512 → 32 channels, 256×256, noise 64 + 27,
+                batch 16, bf16, RMSprop) for epochs 1 … 10, to its checkpoint
+                at epoch 10, then one epoch resumed with st_epochs 10: every
+                loss finite, d_acc in [0, 1], a CSV row and a sample grid per
+                epoch, bn1's running statistics and every spectral norm's u
+                moved, u of unit norm, the resumed state at the saved step and
+                the checkpoint restoring the saved state exactly; s/step,
+                images/s, one step's device time by kernel (torch.profiler),
+                peak memory; the trained generator's and discriminator's bf16
+                forward on the card against float32 on the CPU.
+ 13. specunet — synthetic noise and bird recordings (a quarter at 44.1 kHz,
+                resampled to 22,050 Hz) with their CSVs; the exact mel kernel
+                at the mix shape (3 × 8 clips of 2¹⁷ samples) against its plain
+                version and, before the midpoint normalisation, the float64
+                oracle within the exact rung's dB bounds, timed against the
+                plain version and torch.stft + filterbank; then
+                cli.train_specunet.run in separate mode at the SpecUNetConfig
+                defaults (batch 8, bf16, d_model 512, 6 layers) for 2 epochs
+                and in denoise mode for 1, which writes the denoiser's
+                checkpoint: finite losses, the separation figure, a mel kernel
+                launch per batch; s/step and the load/resample, mel kernel,
+                normalise and step split.
+ 14. denoised classifiers — cli.train_classifiers with --denoiser_ckpt (the
+                denoise run) for the custom net, one epoch: finite losses; the
+                denoiser's float32 forward on the card against the CPU (TF32
+                off).
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when CUDA
@@ -167,6 +194,14 @@ INVERT_SHORT_REL, INVERT_FULL_DB, ROUNDTRIP_DB, ROUNDTRIP_CORR = 1e-4, 0.1, 3.0,
 # FID of a directory against itself, and the classifier's float32 features,
 # card against CPU (relative to the largest logit)
 FID_SELF_TOL, FEATURE_TOL = 1e-3, 1e-4
+ACGAN_EPOCHS = 10  # cli.train_acgan runs epochs 1 … 10 and saves at 10; then one more, resumed
+# the trained ACGAN's bf16 forward on the card against float32 on the CPU, the
+# same weights: relative L2 of the generator's output and the discriminator's
+# class log-probabilities (bf16 keeps 8 bits: ~4e-3 a rounding, over ~15 layers)
+GAN_BF16_TOL = 5e-2
+SPECUNET_PAIRS, SPECUNET_BATCH = 48, 8
+# the denoiser's float32 forward, card (TF32 off) against CPU, relative to 1
+DENOISER_TOL = 1e-4
 MEL_RUNGS = ((True, "exact", "spectrogramgenai_tpu/ops/mel_kernel.py:94"),
              ("high", "high", "spectrogramgenai_tpu/ops/mel_kernel.py:147"),
              (False, "fast", "spectrogramgenai_tpu/ops/mel_kernel.py:94"))
@@ -834,6 +869,287 @@ def phase_fid(torch) -> None:
           f"features card vs CPU {err:.3g} <= {FEATURE_TOL}")
 
 
+def phase_acgan(torch, cfg=None) -> None:
+    """cli.train_acgan.run on the card to its checkpoint at epoch 10, then one resumed epoch."""
+    import copy
+    import dataclasses
+
+    from spectrogramgenai_tpu_torch.cli import train_acgan
+    from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
+    from spectrogramgenai_tpu_torch.core.config import ACGANConfig, DataConfig, RunConfig
+    from spectrogramgenai_tpu_torch.data.pipeline import ImageFolderSource, iterate_batches, to_device
+    from spectrogramgenai_tpu_torch.train.acgan_task import ACGANTask
+
+    # the ACGANConfig defaults: generator 512 → 32 channels, 256×256, noise 64 + 27, batch 16, bf16, RMSprop 0.002
+    cfg = cfg or ACGANConfig(run=RunConfig(run_name="smoke_acgan", seed=0),
+                             data=DataConfig(dataset_path="datasets", batch_size=16), num_classes=TRAIN_CLASSES,
+                             epochs=ACGAN_EPOCHS + 1)
+    steps_per_epoch = TRAIN_CLASSES * TRAIN_PER_CLASS // cfg.data.batch_size
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.perf_counter()
+    (task, state), printed = run_quiet(train_acgan.run, cfg, device="cuda")
+    wall = time.perf_counter() - t_run
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for line in printed.splitlines():
+        log(f"acgan run 1: {line}")
+    check(state.step == ACGAN_EPOCHS * steps_per_epoch, f"ACGAN trained {state.step} steps")
+    epochs = re.findall(r"epoch (\d+): (\d+) steps in ([\d.]+) s, ([\d.]+) s/step, ([\d.]+) images/s, "
+                        r"Loss_D (\S+), Loss_G (\S+), d_acc (\S+)", printed)
+    check([int(e[0]) for e in epochs] == list(range(1, ACGAN_EPOCHS + 1)), "an ACGAN line for epochs 1 … 10")
+    with open(f"results/{cfg.run.run_name}/training_results.csv", newline="") as f:
+        rows = list(csv.DictReader(f))
+    check([int(r["Epoch"]) for r in rows] == list(range(1, ACGAN_EPOCHS + 1)), "a CSV row per epoch")
+    check(all(math.isfinite(float(r[k])) for r in rows for k in ("Loss_D", "Loss_G", "Loss_A"))
+          and all(0.0 <= float(r["Loss_A"]) <= 1.0 for r in rows), "finite losses, d_acc in [0, 1]")
+    check(all(os.path.exists(f"results/{cfg.run.run_name}/fake_samples_epoch_{e:03d}.png")
+              for e in range(1, ACGAN_EPOCHS + 1)), "a sample grid per epoch")
+    init = ACGANTask(cfg, "cpu").init_state()
+    for i in range(task.generator.num_blocks):
+        mean, var = (state.g_stats[f"block_{i}.bn1.running_{s}"].cpu() for s in ("mean", "var"))
+        check(not torch.equal(mean, init.g_stats[f"block_{i}.bn1.running_mean"]) and not torch.equal(
+            var, init.g_stats[f"block_{i}.bn1.running_var"]), f"block_{i}.bn1's running statistics moved")
+    us = [k for k in state.d_stats if k.endswith(".u")]
+    check(len(us) == 6 and all(not torch.equal(state.d_stats[k].cpu(), init.d_stats[k]) for k in us),
+          "every spectral norm's u moved")
+    norms = [float(state.d_stats[k].norm()) for k in us]
+    check(all(abs(n - 1.0) < 1e-4 for n in norms), f"every u has unit norm ({min(norms):.6f} … {max(norms):.6f})")
+    saved = CheckpointManager(f"models/{cfg.run.run_name}").restore(ACGAN_EPOCHS)
+    for name, got, want in (("generator", saved["g_params"], {**state.g_params, **state.g_stats}),
+                            ("discriminator", saved["d_params"], {**state.d_params, **state.d_stats})):
+        check(set(got) == set(want) and all(torch.equal(got[k], want[k].cpu()) for k in want),
+              f"the epoch-{ACGAN_EPOCHS} checkpoint holds the {name}'s state exactly")
+    s_step, images_s = float(epochs[1][3]), float(epochs[1][4])
+    log(f"acgan: {state.step} steps of batch {cfg.data.batch_size} (generator {cfg.noise_dim} + {cfg.num_classes} → "
+        f"512 … 32 channels → 256×256, {cfg.compute_dtype}) in {wall:.2f} s wall (with sample grids and a "
+        f"checkpoint); epoch 2 {s_step} s/step, {images_s} images/s (epoch 1 {epochs[0][3]} s/step); Loss_D "
+        f"{rows[0]['Loss_D']} → {rows[-1]['Loss_D']}, Loss_G {rows[0]['Loss_G']} → {rows[-1]['Loss_G']}, d_acc "
+        f"{rows[-1]['Loss_A']}; peak device memory {peak:.2f} GiB")
+
+    # resume: one more epoch from the checkpoint of epoch 10, at its step
+    (task2, state2), printed = run_quiet(train_acgan.run, dataclasses.replace(cfg, epochs=ACGAN_EPOCHS + 2),
+                                         st_epochs=ACGAN_EPOCHS, device="cuda")
+    for line in printed.splitlines():
+        log(f"acgan run 2: {line}")
+    check(f"resumed ACGAN from epoch {ACGAN_EPOCHS} (step {state.step})" in printed,
+          f"the resumed run starts at the saved step {state.step}")
+    check(state2.step == state.step + steps_per_epoch, f"resumed ACGAN run ended at step {state2.step}")
+    check(CheckpointManager(f"models/{cfg.run.run_name}").all_steps() == [ACGAN_EPOCHS, ACGAN_EPOCHS + 1],
+          "checkpoints of epochs 10 and 11")
+
+    # one step's device time by kernel
+    src = ImageFolderSource("datasets/train", seed=0, img_size=cfg.data.img_size)
+    batch = to_device(next(iterate_batches(src, cfg.data.batch_size)), torch.device("cuda"))
+    log_profile(torch, "acgan: one step", lambda: task2.train_step(state2, batch["image"], batch["label"]))
+
+    # the trained nets' bf16 forward on the card against float32 on the CPU, the same weights
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    z = task2.build_noise(torch.arange(cfg.data.batch_size, device="cuda") % cfg.num_classes, generator=gen)
+    g_cpu = copy.deepcopy(task2.generator).to("cpu", torch.float32)
+    g_cpu.load_state_dict({k: v.cpu() for k, v in {**state2.g_params, **state2.g_stats}.items()})
+    d_cpu = copy.deepcopy(task2.discriminator).to("cpu", torch.float32)
+    d_cpu.load_state_dict({k: v.cpu() for k, v in {**state2.d_params, **state2.d_stats}.items()})
+    with torch.no_grad():
+        fake_card, fake_cpu = task2.generate(state2, z).cpu(), g_cpu(z.cpu(), train=False)
+        real = task2.preprocess(batch["image"])
+        (rf_card, c_card), (rf_cpu, c_cpu) = task2.discriminator(real, train=False), d_cpu(real.cpu(), train=False)
+    g_err = float((fake_card - fake_cpu).norm() / fake_cpu.norm())
+    d_err = float((c_card.cpu() - c_cpu).norm() / c_cpu.norm())
+    rf_err = float((rf_card.cpu() - rf_cpu).abs().max())
+    log(f"acgan: bf16 forward on the card against float32 on the CPU (batch {cfg.data.batch_size}): generator "
+        f"{g_err:.3g}, discriminator class log-probs {d_err:.3g} (relative L2, ≤ {GAN_BF16_TOL}), validity max "
+        f"|Δ| {rf_err:.3g}")
+    check(bool(torch.isfinite(fake_card).all()) and fake_card.shape == (cfg.data.batch_size, *real.shape[1:]),
+          "finite samples of the data's shape")
+    check(g_err <= GAN_BF16_TOL and d_err <= GAN_BF16_TOL, f"bf16 forwards within {GAN_BF16_TOL} of float32")
+    del task, state, task2, state2, init, g_cpu, d_cpu
+    torch.cuda.empty_cache()
+
+
+def make_mix_corpus(work: str) -> tuple[str, str]:
+    """SPECUNET_PAIRS noise and bird recordings of 7 s (every fourth at 44.1 kHz,
+    the rest at 22,050 Hz; int16) and their CSVs (path, st, common_name)."""
+    from scipy.io import wavfile
+
+    wav_dir = os.path.join(work, "mix_wavs")
+    os.makedirs(wav_dir)
+    rng = np.random.default_rng(2)
+    rows = {"noise": [], "bird": []}
+    for i in range(SPECUNET_PAIRS):
+        sr = 44100 if i % 4 == 0 else 22050
+        t = np.arange(7 * sr) / sr
+        wind = np.cumsum(rng.standard_normal(len(t)))
+        noise = 0.3 * (wind - wind.mean()) / np.abs(wind).max() + 0.05 * rng.standard_normal(len(t))
+        f0 = rng.uniform(1500, 5000)
+        bird = sum(0.5 * np.sin(2 * np.pi * (f0 * (t - b) + 900 * (t - b) ** 2)) * ((t >= b) & (t < b + 0.8))
+                   for b in rng.uniform(0, 6, 4))
+        for kind, x in (("noise", noise), ("bird", bird + 0.01 * rng.standard_normal(len(t)))):
+            path = os.path.join(wav_dir, f"{kind}{i:02d}.wav")
+            wavfile.write(path, sr, (np.clip(x, -1, 1) * 32767).astype(np.int16))
+            rows[kind].append({"path": path, "st": repr(float(rng.uniform(0, 1))), "common_name": f"{kind}{i % 5}"})
+    csvs = []
+    for kind, table in rows.items():
+        csvs.append(os.path.join(work, f"{kind}.csv"))
+        with open(csvs[-1], "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=["path", "st", "common_name"])
+            writer.writeheader()
+            writer.writerows(table)
+    return csvs[0], csvs[1]
+
+
+def mix_kernel_check(torch, noise_csv: str, bird_csv: str) -> None:
+    """The exact mel kernel at the mix shape (3 × SPECUNET_BATCH clips of 2¹⁷
+    samples) against its plain version and, before the midpoint normalisation,
+    the float64 oracle; its time against the plain version and torch.stft."""
+    from spectrogramgenai_tpu_torch.audio.mel import hann_window
+    from spectrogramgenai_tpu_torch.audio.mix import mix_stack
+    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, constants, reference_logmel_np
+    from spectrogramgenai_tpu_torch.audio.wavio import fixed_window, load_wav
+    from spectrogramgenai_tpu_torch.cli.train_specunet import WINDOW, read_rows
+    from spectrogramgenai_tpu_torch.ops import mel_kernel as mk
+
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from torch_mel_helpers import MEL_TOL, RUNG_BOUNDS, mel_rel_err
+
+    cfg = SpectrogramConfig()
+    noise_rows, bird_rows = read_rows(noise_csv), read_rows(bird_csv)
+    clips = {"noise": [], "bird": []}
+    for nr, br in list(zip(noise_rows, bird_rows))[:SPECUNET_BATCH]:
+        for kind, row in (("noise", nr), ("bird", br)):
+            clips[kind].append(fixed_window(load_wav(row["path"], target_sr=cfg.sample_rate)[0], cfg.sample_rate,
+                                            br["st"], WINDOW))
+    eps = np.random.default_rng(3).uniform(0.0, 0.3, SPECUNET_BATCH)
+    stacked = mix_stack(np.stack(clips["noise"]), np.stack(clips["bird"]), eps)
+    audio = torch.from_numpy(stacked).cuda()
+    b, n = audio.shape
+    t_frames = cfg.frames_for(n)
+    got = mk.fused_mel_power(audio, cfg, True)
+    want = mk.mel_power_reference(audio, cfg, True)
+    torch.cuda.synchronize()
+    check(got.shape == (b, t_frames, cfg.n_mels), f"mix mel shape {tuple(got.shape)}")
+    rel = mel_rel_err(got, want)
+    oracle = np.stack([reference_logmel_np(c, cfg) for c in stacked])
+    err = np.abs(mk.fused_logmel(audio, cfg, True).cpu().numpy() - oracle).max(axis=(1, 2))
+    typical, adversarial = RUNG_BOUNDS[True]
+    log(f"specunet: exact mel kernel at the mix shape ({b} × {n} samples → {t_frames} frames): kernel vs plain per "
+        f"element {rel:.4g} (≤ {MEL_TOL['exact']}); log-mel vs float64 oracle, per clip max, sorted: "
+        + " ".join(f"{e:.4g}" for e in np.sort(err)))
+    check(rel <= MEL_TOL["exact"], f"mix mel kernel vs plain {rel:.4g} <= {MEL_TOL['exact']}")
+    check(err.max() <= adversarial and float(np.median(err)) <= typical,
+          f"mix log-mel vs oracle: max {err.max():.4g} <= {adversarial}, median {np.median(err):.4g} <= {typical}")
+
+    window = torch.from_numpy(hann_window(cfg.n_fft)).cuda()
+    fb_t = torch.from_numpy(np.ascontiguousarray(constants(cfg)[1].T)).cuda()
+
+    def library():
+        spec = torch.stft(audio, cfg.n_fft, cfg.hop_length, window=window, center=True, pad_mode="constant",
+                          return_complex=True)
+        return (spec.abs() ** 2).transpose(1, 2) @ fb_t
+
+    t_k = cuda_ms(lambda: mk.fused_mel_power(audio, cfg, True))
+    t_p = cuda_ms(lambda: mk.mel_power_reference(audio, cfg, True))
+    t_lib = cuda_ms(library)
+    consts = mk._kernel_constants(cfg, audio.device, "exact")
+    flops = fft_mel_flops(b, t_frames, cfg.n_fft, int(consts[2][:, 1].sum().item()))
+    nbytes = audio.nbytes + sum(c.nbytes for c in consts) + 4 * b * t_frames * cfg.n_mels
+    t_flops, t_bytes = flops / H100_F64_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
+    log(f"specunet: exact mel kernel at the mix shape {b} × {n}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+        f"torch.stft + filterbank {t_lib:.3f} ms; bound {max(t_flops, t_bytes):.4f} ms (flops {flops:.4g} → "
+        f"{t_flops:.4f} ms, bytes {nbytes:.4g} → {t_bytes:.4f} ms)")
+    del audio, got, want
+
+
+def phase_specunet(torch, work: str, cfg=None) -> tuple[int, str]:
+    """cli.train_specunet.run on the card: separate mode for 2 epochs, then
+    denoise mode for 1; returns the exact mel kernel's launches of both runs
+    (the main path) and the denoiser's checkpoint directory."""
+    import dataclasses
+
+    from spectrogramgenai_tpu_torch.cli import train_specunet
+    from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
+    from spectrogramgenai_tpu_torch.core.config import DataConfig, RunConfig, SpecUNetConfig
+    from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_mel_power
+
+    t0 = time.perf_counter()
+    noise_csv, bird_csv = make_mix_corpus(work)
+    log(f"specunet: {SPECUNET_PAIRS} noise and {SPECUNET_PAIRS} bird recordings of 7 s (a quarter at 44.1 kHz) "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    mix_kernel_check(torch, noise_csv, bird_csv)
+
+    # the SpecUNetConfig defaults: batch 8, bf16, Adam 1e-3; the denoiser d_model 512, 6 layers
+    cfg = cfg or SpecUNetConfig(run=RunConfig(run_name="smoke_specunet", seed=0, log_every=1), epochs=2)
+    steps_per_epoch = SPECUNET_PAIRS // cfg.data.batch_size
+    launches = 0
+    for mode, run_cfg in (("separate", cfg),
+                          ("denoise", dataclasses.replace(cfg, run=dataclasses.replace(cfg.run, run_name="smoke_denoiser"),
+                                                          mode="denoise", epochs=1))):
+        torch.cuda.reset_peak_memory_stats()
+        fused_mel_power.launches = 0  # the main path starts here
+        t_run = time.perf_counter()
+        (task, state), printed = run_quiet(train_specunet.run, run_cfg, noise_csv, bird_csv, device="cuda")
+        wall = time.perf_counter() - t_run
+        n_launch = fused_mel_power.launches  # the main path ends here
+        launches += n_launch
+        for line in printed.splitlines():
+            log(f"specunet {mode}: {line}")
+        steps = run_cfg.epochs * steps_per_epoch
+        check(state.step == steps, f"specunet {mode} trained {state.step} of {steps} steps")
+        check(n_launch >= steps, f"specunet {mode}: {n_launch} exact mel kernel launches >= {steps} batches")
+        epochs = re.findall(r"epoch (\d+): (\d+) steps in ([\d.]+) s, ([\d.]+) s/step, train_mse (\S+); "
+                            r"load/resample ([\d.]+) s, mel kernel ([\d.]+) s, normalise ([\d.]+) s, step ([\d.]+) s",
+                            printed)
+        check(len(epochs) == run_cfg.epochs and all(math.isfinite(float(e[4])) for e in epochs),
+              f"specunet {mode}: {run_cfg.epochs} epoch lines with finite losses")
+        records = [json.loads(line) for line in open(f"results/{run_cfg.run.run_name}/metrics.jsonl")]
+        check(len(records) == steps and all(math.isfinite(r["train_mse"]) for r in records),
+              f"specunet {mode}: {steps} finite logged losses")
+        last = run_cfg.epochs - 1
+        check(os.path.exists(f"results/{run_cfg.run.run_name}/sep_examples_epoch_{last:03d}.png"),
+              f"specunet {mode}: separation figure")
+        check(CheckpointManager(f"models/{run_cfg.run.run_name}").latest_step() == steps,
+              f"specunet {mode}: checkpoint at step {steps}")
+        e = epochs[-1]
+        log(f"specunet {mode}: {steps} steps of batch {run_cfg.data.batch_size} ({run_cfg.compute_dtype}) in "
+            f"{wall:.2f} s wall; epoch {e[0]} {e[3]} s/step ({e[1]} steps: load/resample {e[5]} s, mel kernel "
+            f"{e[6]} s, normalise {e[7]} s, step {e[8]} s); {n_launch} exact mel kernel launches; peak device "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del task, state
+    torch.cuda.empty_cache()
+    return launches, "models/smoke_denoiser"
+
+
+def phase_denoised_classifiers(torch, denoiser_ckpt: str, img_size: int = 256) -> None:
+    """cli.train_classifiers with --denoiser_ckpt; the denoiser's float32 forward, card against CPU."""
+    from spectrogramgenai_tpu_torch.cli import train_classifiers
+    from spectrogramgenai_tpu_torch.data.pipeline import ImageFolderSource, iterate_batches
+    from spectrogramgenai_tpu_torch.data.transforms import renorm_m1_1
+
+    t0 = time.perf_counter()
+    results, printed = run_quiet(train_classifiers.main, [
+        "--train_dir", "datasets/train", "--val_dir", "datasets/val", "--models", "custom", "--synths", "0",
+        "--epochs", "1", "--denoiser_ckpt", denoiser_ckpt, "--data.img_size", str(img_size),
+        "--run.output_dir", "sweep_denoised", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    for line in printed.splitlines():
+        log(f"denoised classifiers: {line}")
+    lines = re.findall(r"custom_synth0 epoch 0: (\d+) steps in ([\d.]+) s, ([\d.]+) images/s, "
+                       r"train_loss=([\d.naif]+) val_acc=([\d.]+)", printed)
+    check(len(lines) == 1 and int(lines[0][0]) > 0 and math.isfinite(float(lines[0][3])),
+          "the denoised custom run: a finite loss")
+    log(f"denoised classifiers: custom with the denoiser, 1 epoch of {lines[0][0]} steps in {lines[0][1]} s "
+        f"({lines[0][2]} images/s), {wall:.2f} s wall; val acc {results[('custom', 0)]:.4f}")
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    src = ImageFolderSource("datasets/val", img_size=img_size)
+    x = renorm_m1_1(torch.from_numpy(next(iterate_batches(src, 8))["image"]))
+    got = train_classifiers.load_denoiser_apply(denoiser_ckpt, "cuda")(x.cuda()).cpu()
+    want = train_classifiers.load_denoiser_apply(denoiser_ckpt, "cpu")(x)
+    err = float((got - want).abs().max() / max(1.0, float(want.abs().max())))
+    log(f"denoised classifiers: the denoiser's float32 forward (8 × {img_size}×{img_size}, TF32 off) card vs CPU max error "
+        f"{err:.3g} (≤ {DENOISER_TOL})")
+    check(err <= DENOISER_TOL, f"denoiser card vs CPU {err:.3g} <= {DENOISER_TOL}")
+
+
 def row_rel_err(got, want) -> float:
     """max over rows of |got − want| / |want|, norms over the head dim."""
     got, want = got.double(), want.double()
@@ -1492,6 +1808,9 @@ def main() -> int:
         train_launches, ddpm_cfg = timed("train", phase_train, torch, vqae_ckpt)
         timed("classifiers", phase_classifiers, torch, ddpm_cfg)
         timed("fid", phase_fid, torch)
+        timed("acgan", phase_acgan, torch)
+        specunet_launches, denoiser_ckpt = timed("specunet", phase_specunet, torch, work)
+        timed("denoised_classifiers", phase_denoised_classifiers, torch, denoiser_ckpt)
         os.chdir(REPO)
 
     kernels = [{"name": "attention_fwd", "route": "cuda",
@@ -1504,7 +1823,8 @@ def main() -> int:
     for _, rung, replaces in MEL_RUNGS:
         kernels.append({"name": f"mel_power_{rung}", "route": "cuda",
                         "source": "spectrogramgenai_tpu_torch/csrc/mel_power.cu", "replaces": replaces,
-                        "launches": mel_launches[rung], **mel[rung]})
+                        "launches": mel_launches[rung] + (specunet_launches if rung == "exact" else 0),
+                        **mel[rung]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

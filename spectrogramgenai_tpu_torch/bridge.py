@@ -18,13 +18,19 @@ The port's modules repeat the flax module names, so a flax parameter path
     ``batch_stats`` ``mean`` / ``var`` → ``running_mean`` / ``running_var``;
   * a depthwise conv (``feature_group_count`` = channels, kernel
     (kh, kw, 1, C)) → (C, 1, kh, kw), the same HWIO → OIHW transpose;
+  * a ``SpectralNorm``-wrapped layer (``models/gan.py``): its kernel and
+    bias as above, from the layer's own params path, and its power-iteration
+    state from ``batch_stats`` of the enclosing module's ``SpectralNorm_<j>``,
+    ``<layer>/kernel/u`` (1, out) and ``<layer>/kernel/sigma`` () → the
+    layer's ``u`` and ``sigma`` buffers;
   * the first Dense after a flatten needs no permutation: the port's
-    classifiers flatten NHWC, as flax does.
+    classifiers and discriminator flatten NHWC, as flax does, and the
+    generator reads its first Dense's output as NHWC.
 
 Inputs are nested dicts of array-likes (numpy arrays, or anything
 ``np.asarray`` accepts), as flax variables are: ``{"params": …}``, for the
-VQ-VAE ``{"params": …, "codebook": …}``, for a classifier with BatchNorm
-``{"params": …, "batch_stats": …}``.
+VQ-VAE ``{"params": …, "codebook": …}``, for a model with BatchNorm or
+spectral norm ``{"params": …, "batch_stats": …}``.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from spectrogramgenai_tpu_torch.models.classifiers import BatchNorm
+from spectrogramgenai_tpu_torch.models.gan import SpectralNorm
 from spectrogramgenai_tpu_torch.models.vqvae import VQEmbeddingEMA
 
 
@@ -45,6 +52,15 @@ def _subtree(tree: dict, path: list[str]) -> dict:
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _spectral_norm_stats(batch_stats: dict, path: list[str]) -> dict:
+    """{"u", "sigma"} of the layer at ``path`` from its SpectralNorm wrapper's stats."""
+    parent, name = _subtree(batch_stats, path[:-1]), path[-1]
+    for wrapper, stats in parent.items():
+        if wrapper.startswith("SpectralNorm_") and f"{name}/kernel/u" in stats:
+            return {"u": stats[f"{name}/kernel/u"], "sigma": stats[f"{name}/kernel/sigma"]}
+    raise KeyError(f"no SpectralNorm stats for {'/'.join(path)}")
 
 
 def state_dict_from_flax(module: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
@@ -82,6 +98,8 @@ def state_dict_from_flax(module: nn.Module, variables: dict) -> dict[str, torch.
             out[prefix + "weight"] = _t(p["scale"])
         if getattr(m, "bias", None) is not None:
             out[prefix + "bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+        if isinstance(m, SpectralNorm):
+            out.update({prefix + k: _t(v) for k, v in _spectral_norm_stats(variables["batch_stats"], path).items()})
 
     want = module.state_dict()
     if set(want) != set(out):

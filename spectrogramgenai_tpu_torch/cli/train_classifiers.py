@@ -8,9 +8,12 @@ the full metric suite, a per-epoch CSV under
 ``<output_dir>/<model>_synth<n>/``, and the best-validation-accuracy
 checkpoint mirrored to ``<output_dir>/ckpt_<model>_synth<n>/best/``. With
 ``--embeddings_csv`` (columns ``file_name``, ``embeddings``) the step adds
-knowledge distillation against those BirdNET embeddings. Runs on CUDA
-unless ``--device`` says otherwise. The JAX CLI's ``--pretrained_dir``
-(converted ImageNet weights) and ``--denoiser_ckpt`` are not ported.
+knowledge distillation against those BirdNET embeddings. With
+``--denoiser_ckpt`` (a checkpoint directory written by ``cli.train_specunet
+--mode denoise``) every image is preprocessed as x ← renorm(x − denoiser(x))
+by that float32 denoiser. Runs on CUDA unless ``--device`` says otherwise.
+The JAX CLI's ``--pretrained_dir`` (converted ImageNet weights) is not
+ported.
 
   python -m spectrogramgenai_tpu_torch.cli.train_classifiers \\
       --train_dir datasets/train --val_dir datasets/val --test_dir datasets/test \\
@@ -27,6 +30,7 @@ import re
 import time
 
 import numpy as np
+import torch
 
 
 def evaluate(task, state, src, device, batch_size: int, num_classes: int):
@@ -45,6 +49,30 @@ def run_tag(model_name: str, synth: int, knowledge_dist: bool) -> str:
     return f"{model_name}_synth{synth}{'_kd' if knowledge_dist else ''}"
 
 
+def load_denoiser_apply(ckpt_dir: str | None, device: torch.device | str = "cuda"):
+    """The noise-reduction preprocessing: a function x → denoiser(x) (NHWC
+    [-1, 1], float32, no gradient) for the latest checkpoint under
+    ``ckpt_dir`` of a 1-channel ``TransformerDenoiser``, or None without a
+    directory. Its width and depth are read from the checkpoint's shapes
+    (the JAX CLI builds the default 512-wide, 6-layer net)."""
+    if not ckpt_dir:
+        return None
+    from spectrogramgenai_tpu_torch.cli.common import restore
+    from spectrogramgenai_tpu_torch.models.denoiser import TransformerDenoiser
+
+    params = restore(ckpt_dir, "denoiser")["params"]
+    layers = sum(1 for k in params if re.fullmatch(r"TransformerEncoderLayer_\d+\.LayerNorm_0\.weight", k))
+    model = TransformerDenoiser(out_channels=1, num_layers=layers, d_model=params["Conv_4.weight"].shape[0])
+    model.load_state_dict(params)
+    model.to(device).eval()
+
+    @torch.no_grad()
+    def apply(x: torch.Tensor) -> torch.Tensor:
+        return model(x.float())
+
+    return apply
+
+
 def train_one(model_name: str, synth: int, args, cfg_base, device: str = "cuda") -> float:
     """Train one (model, synthetic count) cell; returns its best validation accuracy."""
     from spectrogramgenai_tpu_torch.cli.common import resolve_device, setup
@@ -56,6 +84,8 @@ def train_one(model_name: str, synth: int, args, cfg_base, device: str = "cuda")
     dev = resolve_device(device)
     cfg = dataclasses.replace(cfg_base, model_name=model_name, synthetic_per_class=synth)
     setup(cfg.run)
+    if getattr(args, "denoiser_ckpt", None):
+        cfg = dataclasses.replace(cfg, use_denoiser=True)
 
     def source(root, **kw):
         return ImageFolderSource(root, img_size=cfg.data.img_size, cache_decoded=cfg.data.cache_decoded,
@@ -74,7 +104,7 @@ def train_one(model_name: str, synth: int, args, cfg_base, device: str = "cuda")
     num_classes = len(train_src.classes)
     cfg = dataclasses.replace(cfg, num_classes=num_classes)
 
-    task = ClassifierTask(cfg, dev)
+    task = ClassifierTask(cfg, dev, denoiser_apply=load_denoiser_apply(getattr(args, "denoiser_ckpt", None), dev))
     state = task.init_state()
     tag = run_tag(model_name, synth, cfg.knowledge_dist)
     logger = MetricsLogger(os.path.join(cfg.run.output_dir, tag), csv_name=f"{tag}_metrics.csv",
@@ -162,6 +192,8 @@ def main(argv=None):
     p.add_argument("--synths", default="0,50,100,150,200,250")
     p.add_argument("--embeddings_csv", default=None,
                    help="BirdNET embeddings CSV (file_name, embeddings) → enables knowledge distillation")
+    p.add_argument("--denoiser_ckpt", default=None,
+                   help="checkpoint directory of cli.train_specunet --mode denoise → x ← renorm(x − denoiser(x))")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
     add_config_args(p, ClassifierConfig)
     a = p.parse_args(argv)

@@ -1,12 +1,11 @@
-"""Typed configuration for the port's slices: run, data, DDPM, VQ-VAE and
-classifier configs plus CLI overrides.
+"""Typed configuration for the port's slices: run, data, DDPM, VQ-VAE,
+ACGAN, classifier and SpecUNet configs plus CLI overrides.
 
 A copy of the same classes in ``spectrogramgenai_tpu/core/config.py``, with
 the same field names and defaults (a test holds them equal), so that a flag
 means the same in both packages. The mesh and sharding fields of
 ``RunConfig`` are kept for that reason; the port runs on one device and
-ignores them. The other workloads' configs (ACGAN, the denoiser) come with
-their slices.
+ignores them.
 """
 
 from __future__ import annotations
@@ -109,6 +108,27 @@ class VQVAEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ACGANConfig:
+    """ACGAN (``cli/train_acgan.py``)."""
+
+    run: RunConfig = RunConfig(run_name="acgan")
+    data: DataConfig = DataConfig(batch_size=16)
+    epochs: int = 200
+    noise_dim: int = 64            # N_Z
+    num_classes: int = 27
+    num_blocks: int = 4            # not read by the task, as in the JAX package (ROADMAP queue 3)
+    lr: float = 0.002              # RMSprop, both nets
+    rmsprop_alpha: float = 0.99
+    rmsprop_eps: float = 1e-8
+    use_aind: bool = False
+    n_ind: int = 11
+    use_denoiser: bool = False     # the CLI passes no denoiser, as in the JAX package (ROADMAP queue 3)
+    sample_every: int = 100        # eval-noise grids every 100 batches
+    compute_dtype: str = "bfloat16"
+    grad_accum: int = 1            # microbatches per optimizer update
+
+
+@dataclasses.dataclass(frozen=True)
 class ClassifierConfig:
     """Classifier sweep (``cli/train_classifiers.py``)."""
 
@@ -123,7 +143,25 @@ class ClassifierConfig:
     knowledge_dist: bool = False
     kd_temperature: float = 3.0
     kd_alpha: float = 0.7
-    use_denoiser: bool = False     # the denoiser is not ported: True raises
+    use_denoiser: bool = False     # x ← renorm(x − denoiser(x)) before the net (--denoiser_ckpt)
+    compute_dtype: str = "bfloat16"
+    grad_accum: int = 1            # microbatches per optimizer update
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecUNetConfig:
+    """Source-separation / denoiser trainer (``cli/train_specunet.py``).
+
+    mode="separate": mix → 2 channels (noise, bird), the separator;
+    mode="denoise":  mix → 1 channel, the noise: the denoiser that the
+    classifiers apply as ``x − net(x)``.
+    """
+
+    run: RunConfig = RunConfig(run_name="specunet")
+    data: DataConfig = DataConfig(batch_size=8)
+    epochs: int = 100
+    lr: float = 1e-3               # Adam
+    mode: str = "separate"
     compute_dtype: str = "bfloat16"
     grad_accum: int = 1            # microbatches per optimizer update
 

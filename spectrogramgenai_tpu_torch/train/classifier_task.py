@@ -1,6 +1,7 @@
 """Classifier training task (``spectrogramgenai_tpu/train/classifier_task.py``) on one device.
 
-Per step: renorm to [-1, 1] → channel adapt → forward (dropout, BatchNorm
+Per step: renorm to [-1, 1] → [denoiser: renorm(x − denoiser(x))] →
+channel adapt → forward (dropout, BatchNorm
 batch statistics) → cross-entropy [+ knowledge distillation against
 BirdNET embeddings: KL at temperature T, weight α] → Adam over the
 trainable parameters only (``models/classifiers.trainable_mask``; the
@@ -16,11 +17,14 @@ Dtypes, as in ``train/diffusion_task.py``: the convolutions and dense
 layers run in the config's compute dtype as a working copy of the float32
 masters in the ``TrainState`` (params and Adam moments), refreshed after
 every update; BatchNorm (parameters and running statistics) and the losses
-are float32. The denoiser preprocessing (``use_denoiser``) is not ported:
-asking for it raises.
+are float32. The denoiser (``denoiser_apply``, a callable on [-1, 1] NHWC
+images, see ``cli/train_classifiers.load_denoiser_apply``) is applied only
+with ``cfg.use_denoiser``, as in the JAX task.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import torch
 import torch.nn as nn
@@ -61,10 +65,10 @@ def kd_loss(logits: torch.Tensor, teacher_emb: torch.Tensor, temperature: float)
 
 
 class ClassifierTask:
-    def __init__(self, cfg: ClassifierConfig, device: torch.device | str):
-        if cfg.use_denoiser:
-            raise NotImplementedError("the denoiser preprocessing (use_denoiser) is not ported yet")
+    def __init__(self, cfg: ClassifierConfig, device: torch.device | str,
+                 denoiser_apply: Callable[[torch.Tensor], torch.Tensor] | None = None):
         self.cfg = cfg
+        self.denoiser_apply = denoiser_apply
         self.device = torch.device(device)
         self.dtype = _DTYPES[cfg.compute_dtype]
         self.name = canonical_name(cfg.model_name)
@@ -102,8 +106,11 @@ class ClassifierTask:
         return state
 
     def preprocess(self, images: torch.Tensor) -> torch.Tensor:
-        """[0, 1] grayscale NHWC → [-1, 1] with the net's input channels."""
+        """[0, 1] grayscale NHWC → [-1, 1] (less the denoiser's noise estimate,
+        renormalised, with ``use_denoiser``) with the net's input channels."""
         x = renorm_m1_1(images.float())
+        if self.denoiser_apply is not None and self.cfg.use_denoiser:
+            x = renorm_m1_1(x - self.denoiser_apply(x))
         return x if self.name == "ensemble" else expand_channels(x, self.n_channel)
 
     def train_step(self, state: TrainState, images: torch.Tensor, labels: torch.Tensor,

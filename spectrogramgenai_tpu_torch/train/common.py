@@ -6,8 +6,10 @@ function of the step, not torch's ``OneCycleLR`` (whose phase ends differ).
 AdamW is ``torch.optim.AdamW``: b1 0.9, b2 0.999, eps outside the square
 root, weight decay decoupled and scaled by the scheduled lr, which is the
 update ``optax.adamw`` computes; Adam is ``torch.optim.Adam``, the update of
-``optax.adam``. The JAX module's mesh sharding rules are TPU
-code and are not here: the port trains on one device.
+``optax.adam``; RMSprop is ``torch.optim.RMSprop``, ν = α·ν + (1 − α)·g²,
+update g/(√ν + eps) with eps outside the square root, the update of
+``optax.rmsprop(eps_in_sqrt=False)``. The JAX module's mesh sharding rules
+are TPU code and are not here: the port trains on one device.
 """
 
 from __future__ import annotations
@@ -41,6 +43,12 @@ def onecycle_lr(step: int, total_steps: int, peak_value: float, pct_start: float
 def make_adam(params: list[torch.Tensor], lr: float) -> torch.optim.Adam:
     """``optax.adam(lr)``: b1 0.9, b2 0.999, eps 1e-8 outside the square root."""
     return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_rmsprop(params: list[torch.Tensor], lr: float, alpha: float = 0.99, eps: float = 1e-8
+                 ) -> torch.optim.RMSprop:
+    """``optax.rmsprop(lr, decay=alpha, eps=eps, eps_in_sqrt=False)``."""
+    return torch.optim.RMSprop(params, lr=lr, alpha=alpha, eps=eps)
 
 
 def make_adamw_onecycle(params: list[torch.Tensor], max_lr: float, total_steps: int, eps: float = 1e-5,

@@ -276,11 +276,6 @@ def test_kd_loss_matches_jax():
                                float(jtask.cross_entropy(jnp.asarray(logits), jnp.asarray([0, 1, 2, 6]))), rtol=1e-6)
 
 
-def test_denoiser_preprocessing_is_refused():
-    with pytest.raises(NotImplementedError, match="denoiser"):
-        ttask.ClassifierTask(tc.ClassifierConfig(use_denoiser=True), "cpu")
-
-
 # -- metrics and the sweep's data --------------------------------------------------
 
 def test_classification_metrics_match_jax():

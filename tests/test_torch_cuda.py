@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (attention forward and backward, mel power) against their plain versions, on the card.
+"""The port's CUDA kernels (attention forward and backward, mel power) against their plain versions, on the card;
+the float32 trainers' steps and the GAN and denoiser forwards, card against CPU.
 
 The kernels have no CPU mode, so every test here is marked ``gpu`` and skips
 without a CUDA device. On a machine with an NVIDIA Hopper card and nvcc:
@@ -366,3 +367,66 @@ def test_classifier_float32_step_on_the_card_matches_the_cpu(gen):
     for k, v in cpu.params.items():
         if not mask[k]:  # frozen: bit-equal on both
             assert torch.equal(card.params[k].cpu(), v), k
+
+
+def test_exact_mel_kernel_at_the_mix_shape(gen):
+    # the separator's mix batch: 3 × 8 clips of 2¹⁷ samples (342 frames; the last frames run past the end)
+    from spectrogramgenai_tpu_torch.audio.mix import mix_stack
+
+    cfg = SpectrogramConfig()
+    n = 2**17
+    rng = np.random.default_rng(2)
+    noise = rng.standard_normal((8, n)).astype(np.float32)
+    bird = np.ascontiguousarray(stress_audio(cfg, 8)[:, :n])
+    audio = torch.from_numpy(mix_stack(noise, bird, rng.uniform(0, 0.3, 8))).cuda()
+    before = fused_mel_power.launches
+    got = fused_mel_power(audio, cfg)
+    torch.cuda.synchronize()
+    assert fused_mel_power.launches == before + 1 and got.shape == (24, 342, cfg.n_mels)
+    assert mel_rel_err(got, mel_power_reference(audio, cfg)) <= MEL_TOL["exact"]
+    err = np.abs(fused_logmel(audio, cfg).cpu().numpy() - np.stack([reference_logmel_np(c, cfg)
+                                                                     for c in audio.cpu().numpy()]))
+    assert err.max() <= RUNG_BOUNDS[True][1]
+
+
+def _forward_card_and_cpu(module, x: torch.Tensor, **kw):
+    """module's float32 forward on the card and on the CPU, each from the same
+    weights and state (TF32 off); returns both outputs and both modules."""
+    import copy
+
+    on_cpu = copy.deepcopy(module)
+    with torch.no_grad():
+        card = module.cuda()(x.cuda(), **kw)
+        cpu = on_cpu(x, **kw)
+    return card, cpu, module, on_cpu
+
+
+def test_gan_forwards_on_the_card_match_the_cpu(gen):
+    from spectrogramgenai_tpu_torch.models.gan import Discriminator, Generator, reset_gan
+
+    g = reset_gan(Generator(noise_dim=91), torch.Generator().manual_seed(0))
+    z = torch.randn(2, 91, generator=torch.Generator().manual_seed(1))
+    for train in (False, True):  # the running statistics, and the batch's (BatchNorm updated on both)
+        card, cpu, g_card, g_cpu = _forward_card_and_cpu(g, z, train=train)
+        np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-4, atol=1e-4)
+        g = g_cpu
+    np.testing.assert_allclose(g_card.block_0.bn1.running_var.cpu().numpy(), g_cpu.block_0.bn1.running_var.numpy(),
+                               rtol=1e-5)
+    d = reset_gan(Discriminator(n_classes=27, n_ind=11), torch.Generator().manual_seed(2))
+    x = torch.rand(2, 256, 256, 1, generator=torch.Generator().manual_seed(3)) * 2 - 1
+    card, cpu, d_card, d_cpu = _forward_card_and_cpu(d, x, train=True)  # each updates its u
+    for a, b in zip(card, cpu):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-5)
+    for name in ("block_0_conv", "block_3_conv", "layer_c"):
+        np.testing.assert_allclose(getattr(d_card, name).u.cpu().numpy(), getattr(d_cpu, name).u.numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+def test_denoiser_forward_on_the_card_matches_the_cpu(gen):
+    from spectrogramgenai_tpu_torch.models.denoiser import TransformerDenoiser
+    from spectrogramgenai_tpu_torch.models.layers import init_weights_
+
+    model = init_weights_(TransformerDenoiser(out_channels=2), torch.Generator().manual_seed(0))
+    x = torch.rand(2, 256, 256, 1, generator=torch.Generator().manual_seed(1)) * 2 - 1
+    card, cpu, _, _ = _forward_card_and_cpu(model, x)
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-4, atol=1e-5)

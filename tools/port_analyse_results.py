@@ -26,59 +26,11 @@ import glob
 import math
 import os
 import re
+import sys
 
-_POW10 = [float(f"1e{k}") for k in range(309)]
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-
-def pandas_float(text: str) -> float:
-    """A decimal string as pandas' default C reader parses it (its
-    ``precise_xstrtod``): up to 17 digits accumulated as a double, leading
-    zeros counted, the rest dropped, then scaled by a power of ten. It can
-    differ from ``float(text)`` in the last bits."""
-    s = text.strip()
-    if s in ("", "nan", "NaN", "NA", "N/A", "NULL", "null", "None", "<NA>", "-nan", "-NaN"):
-        return math.nan
-    pos, negative = 0, False
-    if s[:1] in "+-":
-        negative, pos = s[0] == "-", 1
-    number, exponent, digits, decimals = 0.0, 0, 0, 0
-    while pos < len(s) and s[pos].isdigit():
-        if digits < 17:
-            number = number * 10.0 + (ord(s[pos]) - 48)
-            digits += 1
-        else:
-            exponent += 1
-        pos += 1
-    if pos < len(s) and s[pos] == ".":
-        pos += 1
-        while digits < 17 and pos < len(s) and s[pos].isdigit():
-            number = number * 10.0 + (ord(s[pos]) - 48)
-            digits += 1
-            decimals += 1
-            pos += 1
-        while pos < len(s) and s[pos].isdigit():
-            pos += 1
-        exponent -= decimals
-    if digits == 0:
-        return float(s)  # inf and the like: not written by the sweep
-    if negative:
-        number = -number
-    if pos < len(s) and s[pos] in "eE":
-        pos += 1
-        sign = 1
-        if pos < len(s) and s[pos] in "+-":
-            sign, pos = (-1 if s[pos] == "-" else 1), pos + 1
-        n = 0
-        while pos < len(s) and s[pos].isdigit():
-            n, pos = n * 10 + ord(s[pos]) - 48, pos + 1
-        exponent += sign * n
-    if exponent > 308:
-        return math.copysign(math.inf, number)
-    if exponent > 0:
-        return number * _POW10[exponent]
-    if exponent < -308:
-        return 0.0 if exponent < -616 else number / _POW10[-308 - exponent] / _POW10[308]
-    return number / _POW10[-exponent]
+from spectrogramgenai_tpu_torch.data.manifest import pandas_float  # noqa: E402
 
 
 def _cell(row: dict, key: str) -> float:
