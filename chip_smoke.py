@@ -102,6 +102,23 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 the generated images (finite, ≥ 0) and of val against itself
                 (near 0); the features' images/s; the classifier's features
                 on the card against the CPU's at float32 (TF32 off).
+ 11b. evaluators — JAX-layout checkpoints (core/flax_msgpack.to_bytes of
+                bridge.flax_from_state_dict) of seeded random InceptionV3, CLAP
+                (HTSAT-tiny) and ResNet18 (1000 classes) weights; two WAV
+                directories at 22,050 Hz (two 6-s clips of each class recording;
+                cli.spec_to_wav of the generated PNGs); cli.inception_score on the
+                generated PNGs, cli.fid's Inception path (val against generated),
+                cli.fad in mel and clap mode and the generated audio against itself,
+                cli.verify_metrics.run on both pairs (IS ≥ 1, FID and FAD finite and
+                ≥ 0, the self-FAD near 0, verify_metrics' scores the CLIs'); images/s
+                (load/resize, forward) and clips/s (load/resample, mel front end,
+                tower); InceptionV3's logits and features and the CLAP embeddings
+                card against CPU (float32, TF32 off); cli.train_classifiers
+                --pretrained_dir for one epoch of ResNet18 (the loaded count, the
+                head fresh, the frozen prefix the file's); the exact mel kernel at
+                the CLAP shape (8 × 481,024 samples, n_fft 1024, hop 480, 64 mels,
+                centre off) and the FAD shape (32 clips at 48 kHz) against its plain
+                version and the float64 oracle, timed.
  12. acgan    — cli.train_acgan.run on the 27-class corpus at the ACGANConfig
                 defaults (generator 512 → 32 channels, 256×256, noise 64 + 27,
                 batch 16, bf16, RMSprop) for epochs 1 … 10, to its checkpoint
@@ -202,6 +219,9 @@ GAN_BF16_TOL = 5e-2
 SPECUNET_PAIRS, SPECUNET_BATCH = 48, 8
 # the denoiser's float32 forward, card (TF32 off) against CPU, relative to 1
 DENOISER_TOL = 1e-4
+# the evaluators: InceptionV3's and the CLAP tower's float32 outputs card (TF32 off) against CPU,
+# relative L2; the CLAP-FAD of a directory against itself (scipy's sqrtm of a rank-deficient product)
+TOWER_TOL, EVAL_SELF_FAD_TOL = 1e-4, 1e-3
 MEL_RUNGS = ((True, "exact", "spectrogramgenai_tpu/ops/mel_kernel.py:94"),
              ("high", "high", "spectrogramgenai_tpu/ops/mel_kernel.py:147"),
              (False, "fast", "spectrogramgenai_tpu/ops/mel_kernel.py:94"))
@@ -996,52 +1016,45 @@ def make_mix_corpus(work: str) -> tuple[str, str]:
     return csvs[0], csvs[1]
 
 
-def mix_kernel_check(torch, noise_csv: str, bird_csv: str) -> None:
-    """The exact mel kernel at the mix shape (3 × SPECUNET_BATCH clips of 2¹⁷
-    samples) against its plain version and, before the midpoint normalisation,
-    the float64 oracle; its time against the plain version and torch.stft."""
+def exact_mel_check(torch, what: str, audio, cfg) -> None:
+    """The exact mel kernel on ``audio`` (B, N) on the card at ``cfg``: against
+    its plain version per element and, as log-mel over every frame, against
+    the float64 oracle within the exact rung's dB bounds (per clip: the
+    median within the typical bound, every clip within the adversarial
+    one); kernel, plain and torch.stft + filterbank times (CUDA events,
+    median of 10) and the bound."""
+    import dataclasses
+
     from spectrogramgenai_tpu_torch.audio.mel import hann_window
-    from spectrogramgenai_tpu_torch.audio.mix import mix_stack
-    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, constants, reference_logmel_np
-    from spectrogramgenai_tpu_torch.audio.wavio import fixed_window, load_wav
-    from spectrogramgenai_tpu_torch.cli.train_specunet import WINDOW, read_rows
+    from spectrogramgenai_tpu_torch.audio.spectrogram import constants, reference_logmel_np
     from spectrogramgenai_tpu_torch.ops import mel_kernel as mk
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_mel_helpers import MEL_TOL, RUNG_BOUNDS, mel_rel_err
 
-    cfg = SpectrogramConfig()
-    noise_rows, bird_rows = read_rows(noise_csv), read_rows(bird_csv)
-    clips = {"noise": [], "bird": []}
-    for nr, br in list(zip(noise_rows, bird_rows))[:SPECUNET_BATCH]:
-        for kind, row in (("noise", nr), ("bird", br)):
-            clips[kind].append(fixed_window(load_wav(row["path"], target_sr=cfg.sample_rate)[0], cfg.sample_rate,
-                                            br["st"], WINDOW))
-    eps = np.random.default_rng(3).uniform(0.0, 0.3, SPECUNET_BATCH)
-    stacked = mix_stack(np.stack(clips["noise"]), np.stack(clips["bird"]), eps)
-    audio = torch.from_numpy(stacked).cuda()
     b, n = audio.shape
     t_frames = cfg.frames_for(n)
+    every_frame = dataclasses.replace(cfg, num_frames=t_frames)
     got = mk.fused_mel_power(audio, cfg, True)
     want = mk.mel_power_reference(audio, cfg, True)
     torch.cuda.synchronize()
-    check(got.shape == (b, t_frames, cfg.n_mels), f"mix mel shape {tuple(got.shape)}")
+    check(got.shape == (b, t_frames, cfg.n_mels), f"{what}: mel shape {tuple(got.shape)}")
     rel = mel_rel_err(got, want)
-    oracle = np.stack([reference_logmel_np(c, cfg) for c in stacked])
-    err = np.abs(mk.fused_logmel(audio, cfg, True).cpu().numpy() - oracle).max(axis=(1, 2))
+    oracle = np.stack([reference_logmel_np(c, every_frame) for c in audio.cpu().numpy()])
+    err = np.abs(mk.logmel_from_power(got, every_frame).cpu().numpy() - oracle).max(axis=(1, 2))
     typical, adversarial = RUNG_BOUNDS[True]
-    log(f"specunet: exact mel kernel at the mix shape ({b} × {n} samples → {t_frames} frames): kernel vs plain per "
-        f"element {rel:.4g} (≤ {MEL_TOL['exact']}); log-mel vs float64 oracle, per clip max, sorted: "
-        + " ".join(f"{e:.4g}" for e in np.sort(err)))
-    check(rel <= MEL_TOL["exact"], f"mix mel kernel vs plain {rel:.4g} <= {MEL_TOL['exact']}")
+    log(f"{what}: exact mel kernel ({b} × {n} samples → {t_frames} frames, n_fft {cfg.n_fft}, hop {cfg.hop_length}, "
+        f"{cfg.n_mels} mels, centre {cfg.center}): kernel vs plain per element {rel:.4g} (≤ {MEL_TOL['exact']}); "
+        f"log-mel vs float64 oracle, per clip max, sorted: " + " ".join(f"{e:.4g}" for e in np.sort(err)))
+    check(rel <= MEL_TOL["exact"], f"{what}: mel kernel vs plain {rel:.4g} <= {MEL_TOL['exact']}")
     check(err.max() <= adversarial and float(np.median(err)) <= typical,
-          f"mix log-mel vs oracle: max {err.max():.4g} <= {adversarial}, median {np.median(err):.4g} <= {typical}")
+          f"{what}: log-mel vs oracle: max {err.max():.4g} <= {adversarial}, median {np.median(err):.4g} <= {typical}")
 
     window = torch.from_numpy(hann_window(cfg.n_fft)).cuda()
     fb_t = torch.from_numpy(np.ascontiguousarray(constants(cfg)[1].T)).cuda()
 
     def library():
-        spec = torch.stft(audio, cfg.n_fft, cfg.hop_length, window=window, center=True, pad_mode="constant",
+        spec = torch.stft(audio, cfg.n_fft, cfg.hop_length, window=window, center=cfg.center, pad_mode="constant",
                           return_complex=True)
         return (spec.abs() ** 2).transpose(1, 2) @ fb_t
 
@@ -1052,10 +1065,30 @@ def mix_kernel_check(torch, noise_csv: str, bird_csv: str) -> None:
     flops = fft_mel_flops(b, t_frames, cfg.n_fft, int(consts[2][:, 1].sum().item()))
     nbytes = audio.nbytes + sum(c.nbytes for c in consts) + 4 * b * t_frames * cfg.n_mels
     t_flops, t_bytes = flops / H100_F64_FLOPS * 1e3, nbytes / H100_BYTES_PER_S * 1e3
-    log(f"specunet: exact mel kernel at the mix shape {b} × {n}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
+    log(f"{what}: exact mel kernel {b} × {n}: kernel {t_k:.3f} ms, plain {t_p:.3f} ms, "
         f"torch.stft + filterbank {t_lib:.3f} ms; bound {max(t_flops, t_bytes):.4f} ms (flops {flops:.4g} → "
         f"{t_flops:.4f} ms, bytes {nbytes:.4g} → {t_bytes:.4f} ms)")
-    del audio, got, want
+    del got, want
+
+
+def mix_kernel_check(torch, noise_csv: str, bird_csv: str) -> None:
+    """The exact mel kernel at the mix shape (3 × SPECUNET_BATCH clips of 2¹⁷
+    samples), before the midpoint normalisation (exact_mel_check)."""
+    from spectrogramgenai_tpu_torch.audio.mix import mix_stack
+    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig
+    from spectrogramgenai_tpu_torch.audio.wavio import fixed_window, load_wav
+    from spectrogramgenai_tpu_torch.cli.train_specunet import WINDOW, read_rows
+
+    cfg = SpectrogramConfig()
+    noise_rows, bird_rows = read_rows(noise_csv), read_rows(bird_csv)
+    clips = {"noise": [], "bird": []}
+    for nr, br in list(zip(noise_rows, bird_rows))[:SPECUNET_BATCH]:
+        for kind, row in (("noise", nr), ("bird", br)):
+            clips[kind].append(fixed_window(load_wav(row["path"], target_sr=cfg.sample_rate)[0], cfg.sample_rate,
+                                            br["st"], WINDOW))
+    eps = np.random.default_rng(3).uniform(0.0, 0.3, SPECUNET_BATCH)
+    stacked = mix_stack(np.stack(clips["noise"]), np.stack(clips["bird"]), eps)
+    exact_mel_check(torch, "specunet: the mix shape", torch.from_numpy(stacked).cuda(), cfg)
 
 
 def phase_specunet(torch, work: str, cfg=None) -> tuple[int, str]:
@@ -1148,6 +1181,254 @@ def phase_denoised_classifiers(torch, denoiser_ckpt: str, img_size: int = 256) -
     log(f"denoised classifiers: the denoiser's float32 forward (8 × {img_size}×{img_size}, TF32 off) card vs CPU max error "
         f"{err:.3g} (≤ {DENOISER_TOL})")
     check(err <= DENOISER_TOL, f"denoiser card vs CPU {err:.3g} <= {DENOISER_TOL}")
+
+
+def evaluator_weights(torch, weights_dir: str) -> dict:
+    """JAX-layout checkpoints of seeded random port weights, written as
+    tools/convert_*.py write theirs: inception_v3.msgpack, clap_audio.msgpack,
+    resnet18_imagenet.msgpack and a manifest.json. Convolutions get He-scaled
+    weights (normal, std √(2/fan_in)) so the deep ReLU nets keep O(1)
+    activations; the CLAP BatchNorm gets log-mel-like statistics. Returns
+    the state_dicts written."""
+    from spectrogramgenai_tpu_torch.bridge import flax_from_state_dict
+    from spectrogramgenai_tpu_torch.core import flax_msgpack
+    from spectrogramgenai_tpu_torch.eval.clap import ClapAudioTower
+    from spectrogramgenai_tpu_torch.eval.inception import InceptionV3
+    from spectrogramgenai_tpu_torch.models.classifiers import ResNet18, reset_classifier
+
+    os.makedirs(weights_dir, exist_ok=True)
+    written = {}
+    for i, (name, module) in enumerate((("inception_v3", InceptionV3()), ("clap_audio", ClapAudioTower()),
+                                        ("resnet18_imagenet", ResNet18(num_classes=1000)))):
+        reset_classifier(module, torch.Generator().manual_seed(100 + i))
+        with torch.no_grad():
+            for m in module.modules():
+                if isinstance(m, torch.nn.Conv2d):
+                    m.weight.mul_(math.sqrt(2.0))
+            if name == "clap_audio":
+                module.batch_norm.running_mean.fill_(-40.0)
+                module.batch_norm.running_var.fill_(400.0)
+        sd = module.state_dict()
+        flax_msgpack.write(os.path.join(weights_dir, f"{name}.msgpack"), flax_from_state_dict(module, sd))
+        written[name] = sd
+    with open(os.path.join(weights_dir, "manifest.json"), "w") as f:
+        json.dump({"inception_v3": {"sha256": "random-weights", "verified": False, "max_abs_forward_err": None}}, f)
+    return written
+
+
+def evaluator_audio(work: str) -> tuple[str, str]:
+    """Two WAV directories at 22,050 Hz: "real", two 6-s clips of each class
+    recording of the corpus (from 0 s and 30 s); "generated", cli.spec_to_wav
+    of the generated PNGs."""
+    from spectrogramgenai_tpu_torch.audio.wavio import load_wav, save_wav, slice_clip
+    from spectrogramgenai_tpu_torch.cli import spec_to_wav
+
+    real = os.path.join(work, "audio_real")
+    for c in range(TRAIN_CLASSES):
+        wav, sr = load_wav(os.path.join(work, "wavs", f"class{c:02d}.wav"))
+        for begin in (0, 30):
+            save_wav(os.path.join(real, f"class{c:02d}_{begin}.wav"), slice_clip(wav, sr, begin, begin + 3), sr)
+    gen = os.path.join(work, "audio_gen")
+    n, _ = run_quiet(spec_to_wav.run, "gen_images", gen, batch_size=32, device="cuda")
+    check(n == len(os.listdir("gen_images")), f"spec_to_wav wrote {n} WAVs of the generated images")
+    return real, gen
+
+
+def timed_embeddings(torch, wavs: list, mode: str, model=None) -> tuple[np.ndarray, float, float]:
+    """(embeddings, mel front end s, tower s): eval.fad's embeddings of 48-kHz
+    ``wavs`` in ``mode`` batch by batch as eval.fad does, the two parts timed
+    with CUDA events."""
+    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig
+    from spectrogramgenai_tpu_torch.core.precision import full_float32
+    from spectrogramgenai_tpu_torch.eval.clap import clap_input_features
+    from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_logmel
+
+    def events():
+        return torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    t_mel = t_tower = 0.0
+    out = []
+    if mode == "mel":
+        cfg, n = SpectrogramConfig(sample_rate=48000), min(len(w) for w in wavs)
+        stack = np.stack([w[:n] for w in wavs]).astype(np.float32)
+        for i in range(0, len(stack), 32):
+            (a, b) = events()
+            a.record()
+            spec = fused_logmel(torch.from_numpy(stack[i : i + 32]).cuda(), cfg, exact=True).double()
+            emb = torch.cat([spec.mean(dim=2), spec.std(dim=2, correction=0)], dim=1).float()
+            b.record()
+            out.append(emb.cpu().numpy())
+            t_mel += a.elapsed_time(b) / 1e3
+        return np.concatenate(out), t_mel, 0.0
+    with torch.no_grad(), full_float32():
+        for i in range(0, len(wavs), 8):
+            (a, b), (c, d) = events(), events()
+            a.record()
+            feats = clap_input_features(wavs[i : i + 8], model.cfg, "cuda")
+            b.record()
+            c.record()
+            emb = model(feats)
+            d.record()
+            out.append(emb.cpu().numpy())
+            t_mel, t_tower = t_mel + a.elapsed_time(b) / 1e3, t_tower + c.elapsed_time(d) / 1e3
+    emb = np.concatenate(out)
+    return emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12), t_mel, t_tower
+
+
+def phase_evaluators(torch, work: str) -> int:
+    """The evaluators through their CLIs with JAX-layout checkpoints of random
+    port weights: cli.inception_score, cli.fid's Inception path, cli.fad (mel
+    and clap modes, a directory against itself), cli.verify_metrics.run and
+    cli.train_classifiers --pretrained_dir; the towers card against CPU; the
+    exact mel kernel at the CLAP and FAD shapes. Returns the exact mel kernel's
+    launches on the main path."""
+    from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig
+    from spectrogramgenai_tpu_torch.cli import fad as fad_cli
+    from spectrogramgenai_tpu_torch.cli import fid as fid_cli
+    from spectrogramgenai_tpu_torch.cli import inception_score, train_classifiers, verify_metrics
+    from spectrogramgenai_tpu_torch.core.config import ClassifierConfig
+    from spectrogramgenai_tpu_torch.core.precision import full_float32
+    from spectrogramgenai_tpu_torch.eval.clap import (
+        ClapAudioTowerConfig,
+        build_clap,
+        clap_embeddings,
+        load_clap_params,
+        quantize_int16,
+        repeatpad,
+        spectrogram_config,
+    )
+    from spectrogramgenai_tpu_torch.eval.fad import embeddings_for_dir, load_audio_dir, mel_statistics_embeddings
+    from spectrogramgenai_tpu_torch.eval.inception import build_inception, inception_inputs, load_inception_params
+    from spectrogramgenai_tpu_torch.models.classifiers import ResNet18, reset_classifier
+    from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_mel_power
+    from spectrogramgenai_tpu_torch.train.classifier_task import ClassifierTask
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    weights = "eval_weights"
+    written = evaluator_weights(torch, weights)
+    real_audio, gen_audio = evaluator_audio(work)
+    n_real, n_gen = len(os.listdir(real_audio)), len(os.listdir(gen_audio))
+    log(f"evaluators: 3 JAX-layout checkpoints of random weights and {n_real} real + {n_gen} generated WAVs "
+        f"(22,050 Hz) made in {time.perf_counter() - t0:.2f} s")
+    inc_path, clap_path = os.path.join(weights, "inception_v3.msgpack"), os.path.join(weights, "clap_audio.msgpack")
+
+    fused_mel_power.launches = 0  # the main path starts here
+    # the Inception Score and FID through their CLIs
+    (is_mean, is_std), printed = run_quiet(inception_score.main, ["--image_dir", "gen_images", "--weights", inc_path])
+    check(f"Inception Score: {is_mean:.4f} ± {is_std:.4f}  (n={len(os.listdir('gen_images'))})" in printed,
+          "cli.inception_score printed its score")
+    _, printed = run_quiet(fid_cli.main, ["--dir1", "datasets/val", "--dir2", "gen_images", "--weights", inc_path])
+    m = re.search(r"^FID: (\S+)  \(n1=(\d+), n2=(\d+)\)$", printed.strip(), re.M)
+    check(m is not None, f"cli.fid printed an FID: {printed!r}")
+    fid = float(m.group(1))
+    # FAD: mel mode, clap mode, a directory against itself
+    fads = {}
+    for name, args in (("mel", ["--mode", "mel"]), ("clap", ["--mode", "clap", "--clap_ckpt", clap_path])):
+        fads[name], printed = run_quiet(fad_cli.main, ["--background_dir", real_audio, "--eval_dir", gen_audio, *args])
+        check(printed.startswith(f"FAD ({name} embeddings"), f"cli.fad {name} printed its line: {printed!r}")
+    fads["self"], _ = run_quiet(fad_cli.main, ["--background_dir", gen_audio, "--eval_dir", gen_audio, "--mode", "clap",
+                                               "--clap_ckpt", clap_path])
+    results, printed = run_quiet(verify_metrics.run, "datasets/val", "gen_images", weights, real_audio_dir=real_audio,
+                                 gen_audio_dir=gen_audio, device="cuda")
+    launches = fused_mel_power.launches  # the main path ends here
+    for line in printed.splitlines():
+        log(f"evaluators verify_metrics: {line}")
+    log(f"evaluators: IS {is_mean:.4f} ± {is_std:.4f} ({m.group(3)} generated images), FID val vs generated {fid:.4f} "
+        f"(n1 {m.group(2)}), FAD mel {fads['mel']:.6f}, clap {fads['clap']:.6f}, generated vs itself (clap) "
+        f"{fads['self']!r}; verify_metrics {json.dumps(results)}; exact mel kernel launches {launches}")
+    check(is_mean >= 1.0 - 1e-12 and math.isfinite(is_mean), f"IS {is_mean} finite, >= 1 (to float64 rounding)")
+    for name, value in (("FID", fid), ("FAD mel", fads["mel"]), ("FAD clap", fads["clap"]),
+                        *((f"verify_metrics {k}", v) for k, v in results.items())):
+        check(math.isfinite(value) and value >= 0, f"{name} {value} finite, >= 0")
+    check(fads["self"] <= EVAL_SELF_FAD_TOL,
+          f"FAD of a directory against itself {fads['self']!r} <= {EVAL_SELF_FAD_TOL}")
+    same = [(results["inception_score_mean"], is_mean), (results["fid"], fid), (results["fad"], fads["clap"])]
+    check(all(math.isclose(a, b, rel_tol=1e-3, abs_tol=1e-6) for a, b in same),
+          f"verify_metrics gives the CLIs' scores: {same}")
+
+    # rates: images/s with the load/resize and forward split; clips/s with load/resample, mel kernel, tower
+    t = time.perf_counter()
+    images = inception_score.load_images("gen_images")
+    t_load = time.perf_counter() - t
+    model = build_inception(load_inception_params(inc_path), "cuda", fid_pool=True)
+    fid_cli.compute_features(images, model=model)  # warm-up
+    t = time.perf_counter()
+    fid_cli.compute_features(images, model=model)
+    t_fwd = time.perf_counter() - t
+    log(f"evaluators: Inception {len(images)} images: load/resize {t_load:.3f} s "
+        f"({len(images) / t_load:.1f} images/s), "
+        f"forward {t_fwd:.3f} s ({len(images) / t_fwd:.1f} images/s, batch 32, float32, TF32 off); end to end "
+        f"{len(images) / (t_load + t_fwd):.1f} images/s")
+    clap = build_clap(load_clap_params(clap_path), "cuda")
+    for mode in ("mel", "clap"):
+        # end to end through eval.fad's entry (the clap mode reads its checkpoint too), on the host clock
+        t = time.perf_counter()
+        entry = embeddings_for_dir(gen_audio, mode, 48000, clap_ckpt=clap_path, device="cuda")
+        torch.cuda.synchronize()
+        t_entry = time.perf_counter() - t
+        # the split: load/resample on the host clock, the front end and the tower with CUDA events
+        t = time.perf_counter()
+        wavs = load_audio_dir(gen_audio, 48000)
+        t_load = time.perf_counter() - t
+        emb, t_mel, t_tower = timed_embeddings(torch, wavs, mode, clap)
+        log(f"evaluators: FAD {mode} embeddings of {len(wavs)} clips: eval.fad.embeddings_for_dir {t_entry:.3f} s, "
+            f"{len(wavs) / t_entry:.1f} clips/s end to end; split: load/resample {t_load:.3f} s, "
+            f"mel front end {t_mel:.4f} s, tower {t_tower:.4f} s (CUDA events)")
+        want = mel_statistics_embeddings(wavs, 48000) if mode == "mel" else clap_embeddings(wavs, model=clap)
+        check(np.allclose(emb, want, rtol=1e-5, atol=1e-6) and np.allclose(entry, want, rtol=1e-5, atol=1e-6),
+              f"the timed {mode} loop and embeddings_for_dir give eval.fad's embeddings")
+
+    # the towers, card against CPU, the same weights, float32 with TF32 off
+    x = inception_inputs(images[:8], "cpu")
+    errs = {}
+    for fid_pool, what in ((False, "logits"), (True, "features")):
+        card_model = build_inception(load_inception_params(inc_path), "cuda", fid_pool=fid_pool)
+        cpu_model = build_inception(load_inception_params(inc_path), "cpu", fid_pool=fid_pool)
+        with torch.no_grad(), full_float32():
+            got, want = card_model(x.cuda(), return_features=fid_pool).cpu(), cpu_model(x, return_features=fid_pool)
+        errs[f"Inception {what}"] = float((got - want).norm() / want.norm())
+    two = wavs[:2]
+    got = clap_embeddings(two, model=clap, normalize=False)
+    want = clap_embeddings(two, load_clap_params(clap_path), device="cpu", normalize=False)
+    errs["CLAP embeddings"] = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    log("evaluators: card vs CPU (float32, TF32 off; relative L2): "
+        + ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) + f" (≤ {TOWER_TOL}; 8 images, 2 clips)")
+    check(all(v <= TOWER_TOL for v in errs.values()), f"towers card vs CPU within {TOWER_TOL}: {errs}")
+
+    # cli.train_classifiers --pretrained_dir: one epoch of ResNet18 from the converted file
+    results_pre, printed = run_quiet(train_classifiers.main, [
+        "--train_dir", "datasets/train", "--val_dir", "datasets/val", "--models", "resnet", "--synths", "0",
+        "--epochs", "1", "--pretrained_dir", weights, "--run.output_dir", "sweep_pretrained", "--device", "cuda"])
+    for line in printed.splitlines():
+        log(f"evaluators pretrained: {line}")
+    n_file = sum(1 for k in written["resnet18_imagenet"] if not k.startswith("fc.") and "running" not in k)
+    check(f"resnet: loaded {n_file} pretrained tensors from {weights}/resnet18_imagenet.msgpack" in printed,
+          f"ResNet18 loaded its {n_file} non-head parameters from the file")
+    task = ClassifierTask(ClassifierConfig(model_name="resnet", num_classes=TRAIN_CLASSES), "cpu")
+    merged, _ = task.pretrained_variables(os.path.join(weights, "resnet18_imagenet.msgpack"))
+    fresh = reset_classifier(ResNet18(TRAIN_CLASSES), torch.Generator().manual_seed(task.cfg.run.seed)).state_dict()
+    check(torch.equal(merged["fc.weight"], fresh["fc.weight"]) and torch.equal(merged["fc.bias"], fresh["fc.bias"]),
+          "the head is the fresh seeded init")
+    saved = torch.load("sweep_pretrained/ckpt_resnet_synth0/best/state.pt", weights_only=True)["params"]
+    frozen = [k for k, flag in task.mask.items() if not flag]
+    check(all(torch.equal(saved[k], written["resnet18_imagenet"][k]) for k in frozen),
+          f"ResNet18's {len(frozen)} frozen tensors are the file's after an epoch")
+    log(f"evaluators pretrained: ResNet18 val acc {results_pre[('resnet', 0)]:.4f} after 1 epoch from the file; "
+        f"{len(frozen)} frozen tensors bit-equal to the file's, the head fresh")
+
+    # the exact mel kernel at the two new shapes
+    cfg_clap = ClapAudioTowerConfig()
+    clips = np.stack([repeatpad(quantize_int16(w), cfg_clap.max_length_s * cfg_clap.sampling_rate) for w in wavs[:8]])
+    audio = torch.nn.functional.pad(torch.from_numpy(clips).cuda(), (512, 512), mode="reflect").contiguous()
+    exact_mel_check(torch, "evaluators: the CLAP shape", audio, spectrogram_config(cfg_clap))
+    n = min(len(w) for w in wavs[:32])
+    audio = torch.from_numpy(np.stack([w[:n] for w in wavs[:32]]).astype(np.float32)).cuda()
+    exact_mel_check(torch, "evaluators: the FAD mel shape", audio, SpectrogramConfig(sample_rate=48000))
+    log(f"evaluators: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del model, clap, audio
+    torch.cuda.empty_cache()
+    return launches
 
 
 def row_rel_err(got, want) -> float:
@@ -1808,6 +2089,7 @@ def main() -> int:
         train_launches, ddpm_cfg = timed("train", phase_train, torch, vqae_ckpt)
         timed("classifiers", phase_classifiers, torch, ddpm_cfg)
         timed("fid", phase_fid, torch)
+        eval_launches = timed("evaluators", phase_evaluators, torch, work)
         timed("acgan", phase_acgan, torch)
         specunet_launches, denoiser_ckpt = timed("specunet", phase_specunet, torch, work)
         timed("denoised_classifiers", phase_denoised_classifiers, torch, denoiser_ckpt)
@@ -1823,7 +2105,7 @@ def main() -> int:
     for _, rung, replaces in MEL_RUNGS:
         kernels.append({"name": f"mel_power_{rung}", "route": "cuda",
                         "source": "spectrogramgenai_tpu_torch/csrc/mel_power.cu", "replaces": replaces,
-                        "launches": mel_launches[rung] + (specunet_launches if rung == "exact" else 0),
+                        "launches": mel_launches[rung] + (specunet_launches + eval_launches if rung == "exact" else 0),
                         **mel[rung]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,11 @@ dynamic-batching HTTP server, the generate CLI), the wav → log-mel front end
 (gen_specs), latent-DDPM training (train_ddpm), VQ-VAE training
 (train_vqvae), the classifier zoo, sweep and evaluation
 (train_classifiers, eval_classifiers), spectrogram → audio inversion
-(spec_to_wav, generate --audio_dir, the server's WAVs) and the
-classifier-feature FID (fid). The self-attention
+(spec_to_wav, generate --audio_dir, the server's WAVs), the ACGAN and
+the SpecUNet denoiser/separator (train_acgan, train_specunet), and the
+evaluators: InceptionV3 IS and FID (inception_score, fid), the CLAP audio
+tower and FAD (fad), verify_metrics, with converted flax weights read by
+core/flax_msgpack. The self-attention
 forward and backward and the mel power spectrogram run in hand-written CUDA
 kernels (``csrc/``) on the card; on a CPU tensor each wrapper computes its
 plain PyTorch version. Imports torch, never JAX.

@@ -23,30 +23,15 @@ two packages' random streams differ.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 import io
-import threading
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, constants, frame_signal
-
-_TF32_LOCK = threading.Lock()
-
-
-@contextlib.contextmanager
-def _full_f32_matmul():
-    """float32 products at full precision on the card (TF32 off), restored after."""
-    with _TF32_LOCK:
-        prev = torch.backends.cuda.matmul.allow_tf32
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            yield
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = prev
+from spectrogramgenai_tpu_torch.core.precision import full_float32
 
 
 @functools.lru_cache(maxsize=32)
@@ -173,7 +158,7 @@ def mel_power_to_stft_power(mel: torch.Tensor, cfg: SpectrogramConfig, n_iter: i
     mel = _real(mel)
     fb, gram, lip = _nnls_on(cfg, mel.device)
     fb, gram = fb.to(mel.dtype), gram.to(mel.dtype)
-    with _full_f32_matmul():
+    with full_float32():
         num = torch.einsum("mf,bmt->bft", fb, mel)
         s = y = (num / lip).clamp(min=0.0)
         for beta in _fista_betas(n_iter):

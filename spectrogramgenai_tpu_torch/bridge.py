@@ -1,4 +1,4 @@
-"""flax parameters → the port's state_dicts.
+"""flax parameters → the port's state_dicts, and back.
 
 The port's modules repeat the flax module names, so a flax parameter path
 (``Down_0/DoubleConv_1/Conv_0/kernel``) is the torch key with dots
@@ -25,7 +25,15 @@ The port's modules repeat the flax module names, so a flax parameter path
     layer's ``u`` and ``sigma`` buffers;
   * the first Dense after a flatten needs no permutation: the port's
     classifiers and discriminator flatten NHWC, as flax does, and the
-    generator reads its first Dense's output as NHWC.
+    generator reads its first Dense's output as NHWC;
+  * a module's own ``nn.Parameter`` (the CLAP tower's
+    ``relative_position_bias_table``) is the flax leaf of the same name, as
+    it is; a ``Linear`` without a bias (CLAP's ``reduction``) has no bias leaf.
+
+:func:`flax_from_state_dict` is the inverse for modules without spectral
+norm: the ``{"params", "batch_stats", "codebook"}`` tree that
+``tools/convert_*.py`` writes for the same weights, with every Dense kernel
+as (in, out).
 
 Inputs are nested dicts of array-likes (numpy arrays, or anything
 ``np.asarray`` accepts), as flax variables are: ``{"params": …}``, for the
@@ -51,7 +59,13 @@ def _subtree(tree: dict, path: list[str]) -> dict:
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a bfloat16 leaf of core/flax_msgpack
+        return a.detach().to(torch.float32, copy=True)
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True))
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().to("cpu", torch.float32).numpy().copy()
 
 
 def _spectral_norm_stats(batch_stats: dict, path: list[str]) -> dict:
@@ -61,6 +75,9 @@ def _spectral_norm_stats(batch_stats: dict, path: list[str]) -> dict:
         if wrapper.startswith("SpectralNorm_") and f"{name}/kernel/u" in stats:
             return {"u": stats[f"{name}/kernel/u"], "sigma": stats[f"{name}/kernel/sigma"]}
     raise KeyError(f"no SpectralNorm stats for {'/'.join(path)}")
+
+
+_LAYERS = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.Embedding, nn.GroupNorm, nn.LayerNorm)
 
 
 def state_dict_from_flax(module: nn.Module, variables: dict) -> dict[str, torch.Tensor]:
@@ -80,8 +97,9 @@ def state_dict_from_flax(module: nn.Module, variables: dict) -> dict[str, torch.
             out.update({prefix + "weight": _t(p["scale"]), prefix + "bias": _t(p["bias"]),
                         prefix + "running_mean": _t(st["mean"]), prefix + "running_var": _t(st["var"])})
             continue
-        if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear, nn.Embedding,
-                              nn.GroupNorm, nn.LayerNorm)):
+        if not isinstance(m, _LAYERS):
+            for pname, _ in m.named_parameters(recurse=False):
+                out[prefix + pname] = _t(_subtree(variables["params"], path)[pname])
             continue
         p = _subtree(variables["params"], path)
         if isinstance(m, nn.Conv2d):
@@ -109,3 +127,48 @@ def state_dict_from_flax(module: nn.Module, variables: dict) -> dict[str, torch.
         if tuple(v.shape) != tuple(out[k].shape):
             raise ValueError(f"{k}: flax gives shape {tuple(out[k].shape)}, module has {tuple(v.shape)}")
     return out
+
+
+def flax_from_state_dict(module: nn.Module, state_dict: dict[str, torch.Tensor]) -> dict:
+    """The flax variables (nested dicts of float32 NumPy arrays) holding
+    ``state_dict``'s values for ``module``: the inverse of
+    :func:`state_dict_from_flax`. Raises for a spectral-norm layer, whose
+    flax wrapper's index the module does not keep."""
+    tree: dict = {}
+
+    def put(collection: str, path: list[str], leaves: dict) -> None:
+        node = tree.setdefault(collection, {})
+        for name in path:
+            node = node.setdefault(name, {})
+        node.update(leaves)
+
+    for name, m in module.named_modules():
+        path, prefix = (name.split("."), name + ".") if name else ([], "")
+        own = [k for k, _ in m.named_parameters(recurse=False)]
+        sd = {k: state_dict[prefix + k] for k in own + [k for k, _ in m.named_buffers(recurse=False)]
+              if prefix + k in state_dict}  # not the non-persistent buffers
+        if isinstance(m, SpectralNorm):
+            raise NotImplementedError(f"{name}: spectral-norm layers are not written back to flax")
+        if isinstance(m, VQEmbeddingEMA):
+            put("codebook", path, {k: _np(sd[k]) for k in ("embedding", "ema_count", "ema_weight")})
+        elif isinstance(m, BatchNorm):
+            put("params", path, {"scale": _np(sd["weight"]), "bias": _np(sd["bias"])})
+            put("batch_stats", path, {"mean": _np(sd["running_mean"]), "var": _np(sd["running_var"])})
+        elif isinstance(m, _LAYERS):
+            w = _np(sd["weight"])
+            if isinstance(m, nn.Conv2d):
+                leaf = {"kernel": w.transpose(2, 3, 1, 0)}
+            elif isinstance(m, nn.ConvTranspose2d):
+                leaf = {"kernel": np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1])}
+            elif isinstance(m, nn.Linear):
+                leaf = {"kernel": w.T}
+            elif isinstance(m, nn.Embedding):
+                leaf = {"embedding": w}
+            else:  # GroupNorm / LayerNorm
+                leaf = {"scale": w}
+            if "bias" in sd:
+                leaf["bias"] = _np(sd["bias"])
+            put("params", path, {k: np.ascontiguousarray(v) for k, v in leaf.items()})
+        elif own:
+            put("params", path, {k: _np(sd[k]) for k in own})
+    return tree

@@ -1,17 +1,27 @@
-"""Image loading of the Inception Score and FID CLIs (``spectrogramgenai_tpu/cli/inception_score.py``).
+"""Inception Score CLI (``spectrogramgenai_tpu/cli/inception_score.py``).
 
-:func:`load_images` reads a folder of PNGs as 299×299 RGB, bit-equal to the
-JAX function (PIL's ``convert("RGB")`` and BILINEAR resize, here in NumPy).
-The Inception Score itself needs the InceptionV3 net, which is not ported
-yet: :func:`main` says so and exits.
+Folder of PNGs → RGB 299×299 → InceptionV3 logits → IS mean ± std (splits
+10). :func:`load_images` reads the folder bit-equal to the JAX function
+(PIL's ``convert("RGB")`` and BILINEAR resize, here in NumPy). The forward
+runs in float32 with TF32 off on ``--device`` (CUDA by default).
+
+Needs converted ImageNet weights (``tools/convert_torchvision.py`` →
+``--weights``); without them the CLI refuses to print a score unless
+``--allow_random_weights 1`` is passed (a pipeline check only: the port's
+random init, not the JAX package's, so the two print different scores).
+
+  python -m spectrogramgenai_tpu_torch.cli.inception_score --image_dir gen_images \\
+      --weights models/inception_v3.msgpack
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 
 import numpy as np
+import torch
 
 
 def load_images(image_dir: str, limit: int | None = None) -> np.ndarray:
@@ -42,9 +52,51 @@ def load_images(image_dir: str, limit: int | None = None) -> np.ndarray:
     return np.stack(out)
 
 
+def compute_probs(images_u8: np.ndarray, params: dict | None = None, batch: int = 32,
+                  device: torch.device | str = "cuda", model=None) -> np.ndarray:
+    """(n, H, W, 3) uint8 → (n, 1000) float32 softmax of InceptionV3's logits,
+    with the flax ``params`` (or the port's random init when None), or with
+    ``model`` (an :func:`eval.inception.build_inception` net) where given.
+    The last chunk is not padded: eval-mode BatchNorm makes each row independent."""
+    from spectrogramgenai_tpu_torch.cli.common import resolve_device
+    from spectrogramgenai_tpu_torch.core.precision import full_float32
+    from spectrogramgenai_tpu_torch.eval.inception import build_inception, inception_inputs
+
+    if model is None:
+        model = build_inception(params, resolve_device(str(device)))
+    device = next(model.parameters()).device
+    probs = []
+    with torch.no_grad(), full_float32():
+        for i in range(0, len(images_u8), batch):
+            logits = model(inception_inputs(images_u8[i : i + batch], device))
+            probs.append(torch.softmax(logits, dim=-1).cpu().numpy())
+    return np.concatenate(probs)
+
+
 def main(argv=None):
-    sys.exit("the Inception Score needs the InceptionV3 net, which is not ported yet "
-             "(ROADMAP.md queue 1); use spectrogramgenai_tpu.cli.inception_score")
+    from spectrogramgenai_tpu_torch.eval.inception import inception_score, load_inception_params
+
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--image_dir", required=True)
+    p.add_argument("--weights", default=None)
+    p.add_argument("--splits", type=int, default=10)
+    p.add_argument("--limit", type=int, default=None)
+    p.add_argument("--allow_random_weights", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
+    a = p.parse_args(argv)
+
+    params = load_inception_params(a.weights)
+    if params is None and not a.allow_random_weights:
+        sys.exit("no converted InceptionV3 weights found; pass --weights (see "
+                 "tools/convert_torchvision.py) or --allow_random_weights 1 for a smoke run")
+    if params is None:
+        print("WARNING: random InceptionV3 weights — score is NOT meaningful")
+
+    images = load_images(a.image_dir, a.limit)
+    probs = compute_probs(images, params, device=a.device)
+    mean, std = inception_score(probs, splits=a.splits)
+    print(f"Inception Score: {mean:.4f} ± {std:.4f}  (n={len(images)})")
+    return mean, std
 
 
 if __name__ == "__main__":

@@ -11,9 +11,11 @@ checkpoint mirrored to ``<output_dir>/ckpt_<model>_synth<n>/best/``. With
 knowledge distillation against those BirdNET embeddings. With
 ``--denoiser_ckpt`` (a checkpoint directory written by ``cli.train_specunet
 --mode denoise``) every image is preprocessed as x ← renorm(x − denoiser(x))
-by that float32 denoiser. Runs on CUDA unless ``--device`` says otherwise.
-The JAX CLI's ``--pretrained_dir`` (converted ImageNet weights) is not
-ported.
+by that float32 denoiser. With ``--pretrained_dir`` (converted ImageNet
+weights, ``{resnet18,vgg16,mobilenet_v2}_imagenet.msgpack`` of
+``tools/convert_torchvision.py``) each net starts from those weights with
+its head initialised afresh; a missing file prints a note and the net
+trains from scratch. Runs on CUDA unless ``--device`` says otherwise.
 
   python -m spectrogramgenai_tpu_torch.cli.train_classifiers \\
       --train_dir datasets/train --val_dir datasets/val --test_dir datasets/test \\
@@ -47,6 +49,11 @@ def evaluate(task, state, src, device, batch_size: int, num_classes: int):
 
 def run_tag(model_name: str, synth: int, knowledge_dist: bool) -> str:
     return f"{model_name}_synth{synth}{'_kd' if knowledge_dist else ''}"
+
+
+def task_model_file(model_name: str) -> str:
+    """Short model name → the torchvision converter's file stem."""
+    return {"resnet": "resnet18", "vgg": "vgg16", "mobilenet": "mobilenet_v2"}.get(model_name, model_name)
 
 
 def load_denoiser_apply(ckpt_dir: str | None, device: torch.device | str = "cuda"):
@@ -104,8 +111,19 @@ def train_one(model_name: str, synth: int, args, cfg_base, device: str = "cuda")
     num_classes = len(train_src.classes)
     cfg = dataclasses.replace(cfg, num_classes=num_classes)
 
+    pretrained = None
+    if getattr(args, "pretrained_dir", None):
+        cand = os.path.join(args.pretrained_dir, f"{task_model_file(model_name)}_imagenet.msgpack")
+        pretrained = cand if os.path.exists(cand) else None
+        if pretrained is None:
+            print(f"note: no converted weights at {cand}; training {model_name} from scratch")
+
     task = ClassifierTask(cfg, dev, denoiser_apply=load_denoiser_apply(getattr(args, "denoiser_ckpt", None), dev))
-    state = task.init_state()
+    variables = None
+    if pretrained:
+        variables, n_used = task.pretrained_variables(pretrained)
+        print(f"{model_name}: loaded {n_used} pretrained tensors from {pretrained}", flush=True)
+    state = task.init_state(variables=variables)
     tag = run_tag(model_name, synth, cfg.knowledge_dist)
     logger = MetricsLogger(os.path.join(cfg.run.output_dir, tag), csv_name=f"{tag}_metrics.csv",
                            csv_columns=["epoch", "train_loss", "train_acc", "val_acc", "val_f1",
@@ -194,6 +212,9 @@ def main(argv=None):
                    help="BirdNET embeddings CSV (file_name, embeddings) → enables knowledge distillation")
     p.add_argument("--denoiser_ckpt", default=None,
                    help="checkpoint directory of cli.train_specunet --mode denoise → x ← renorm(x − denoiser(x))")
+    p.add_argument("--pretrained_dir", default=None,
+                   help="dir of converted ImageNet weights ({model}_imagenet.msgpack, "
+                        "see tools/convert_torchvision.py)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
     add_config_args(p, ClassifierConfig)
     a = p.parse_args(argv)

@@ -24,8 +24,8 @@ plus its train state, and serving reads a DDPM run's ``params`` or
 
 Floating tensors are saved float32 on the CPU, others as they are, and
 loaded with ``weights_only=True``.
-The JAX package's flax msgpack checkpoints are not read here (that needs
-flax); ``bridge.py`` converts flax parameters held in memory.
+Converted weights in flax's msgpack format (``tools/convert_*.py``) are
+read by ``core/flax_msgpack.py`` and carried into a module by ``bridge.py``.
 """
 
 from __future__ import annotations

@@ -19,11 +19,15 @@ masters in the ``TrainState`` (params and Adam moments), refreshed after
 every update; BatchNorm (parameters and running statistics) and the losses
 are float32. The denoiser (``denoiser_apply``, a callable on [-1, 1] NHWC
 images, see ``cli/train_classifiers.load_denoiser_apply``) is applied only
-with ``cfg.use_denoiser``, as in the JAX task.
+with ``cfg.use_denoiser``, as in the JAX task. :meth:`ClassifierTask.pretrained_variables`
+merges converted ImageNet weights (a flax msgpack of
+``tools/convert_torchvision.py``) into the initial weights, as the JAX
+task's ``_load_pretrained`` does.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Callable
 
 import torch
@@ -49,6 +53,24 @@ from spectrogramgenai_tpu_torch.train.common import (
 from spectrogramgenai_tpu_torch.train.state import TrainState
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+HEAD_NAMES = frozenset({"fc", "classifier", "classifier_6", "fc2"})  # each net's final layer, trained afresh
+
+
+def _flatten(tree: dict, prefix: tuple = ()) -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flatten(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+    return out
+
+
+def _unflatten(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -98,6 +120,38 @@ class ClassifierTask:
         return TrainState(step=0, params=masters, opt=opt,
                           generator=torch.Generator(device=self.device).manual_seed(seed),
                           stats=dict(self.model.named_buffers()))
+
+    def pretrained_variables(self, path: str, variables: dict[str, torch.Tensor] | None = None
+                             ) -> tuple[dict[str, torch.Tensor], int]:
+        """(state_dict, count), as the JAX task's ``_load_pretrained``:
+        ``variables`` (default: the seeded random init of :meth:`init_state`)
+        with every parameter whose flax path and shape match one in the flax
+        msgpack at ``path`` replaced by it, except the heads (``HEAD_NAMES``),
+        and the BatchNorm running statistics likewise; the count is of the
+        parameters taken from the file. Pass the state_dict to :meth:`init_state`."""
+        from spectrogramgenai_tpu_torch.bridge import flax_from_state_dict, state_dict_from_flax
+        from spectrogramgenai_tpu_torch.core import flax_msgpack
+
+        module = self._build(False)
+        if variables is None:
+            variables = reset_classifier(module, torch.Generator().manual_seed(self.cfg.run.seed)).state_dict()
+        loaded = flax_msgpack.read(path)
+        tree = flax_from_state_dict(module, variables)
+        flat_pre = _flatten(loaded.get("params", {}))
+        merged, n_used = {}, 0
+        for k, v in _flatten(tree["params"]).items():
+            pre = flat_pre.get(k)
+            if pre is not None and k[0] not in HEAD_NAMES and tuple(pre.shape) == v.shape:
+                merged[k], n_used = pre, n_used + 1
+            else:
+                merged[k] = v
+        tree["params"] = _unflatten(merged)
+        if "batch_stats" in tree and "batch_stats" in loaded:
+            flat_bs = _flatten(loaded["batch_stats"])
+            tree["batch_stats"] = _unflatten({k: flat_bs[k] if k in flat_bs and tuple(flat_bs[k].shape) == v.shape
+                                              else v for k, v in _flatten(tree["batch_stats"]).items()})
+        logging.getLogger(__name__).info("loaded %d pretrained tensors from %s", n_used, path)
+        return state_dict_from_flax(module, tree), n_used
 
     def load_state(self, state: TrainState, saved: dict) -> TrainState:
         """Restore a checkpoint's dict into ``state`` and the module."""

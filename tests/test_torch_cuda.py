@@ -1,5 +1,5 @@
 """The port's CUDA kernels (attention forward and backward, mel power) against their plain versions, on the card;
-the float32 trainers' steps and the GAN and denoiser forwards, card against CPU.
+the float32 trainers' steps and the GAN, denoiser and evaluator forwards, card against CPU.
 
 The kernels have no CPU mode, so every test here is marked ``gpu`` and skips
 without a CUDA device. On a machine with an NVIDIA Hopper card and nvcc:
@@ -387,6 +387,59 @@ def test_exact_mel_kernel_at_the_mix_shape(gen):
     err = np.abs(fused_logmel(audio, cfg).cpu().numpy() - np.stack([reference_logmel_np(c, cfg)
                                                                      for c in audio.cpu().numpy()]))
     assert err.max() <= RUNG_BOUNDS[True][1]
+
+
+def _evaluator_mel_batch(shape: str):
+    """The exact mel kernel's (config, audio on the card) of an evaluator's front end: "clap" is 8 clips
+    of 10 s at 48 kHz (6-s stress clips repeat-padded), reflect-padded by 512 for the CLAP log-mel
+    (centring off, 481,024 samples → 1001 frames); "fad" is FAD's mel mode, 32 clips at 48 kHz."""
+    import dataclasses
+
+    from spectrogramgenai_tpu_torch.eval.clap import ClapAudioTowerConfig, repeatpad, spectrogram_config
+
+    if shape == "clap":
+        clips = stress_audio(SpectrogramConfig(sample_rate=48000), 8)
+        padded = np.stack([repeatpad(c, 480000) for c in clips])
+        audio = torch.nn.functional.pad(torch.from_numpy(padded).cuda(), (512, 512), mode="reflect").contiguous()
+        cfg = spectrogram_config(ClapAudioTowerConfig())
+        return dataclasses.replace(cfg, num_frames=cfg.frames_for(audio.shape[1])), audio
+    cfg = SpectrogramConfig(sample_rate=48000)
+    return cfg, torch.from_numpy(stress_audio(cfg, 32, seed=3)[:, :250_000].copy()).cuda()
+
+
+@pytest.mark.parametrize("shape, frames", [("clap", 1001), ("fad", 652)])
+def test_exact_mel_kernel_at_the_evaluator_shapes(gen, shape, frames):
+    from spectrogramgenai_tpu_torch.ops.mel_kernel import logmel_from_power
+
+    cfg, audio = _evaluator_mel_batch(shape)
+    before = fused_mel_power.launches
+    got = fused_mel_power(audio, cfg)
+    torch.cuda.synchronize()
+    assert fused_mel_power.launches == before + 1 and got.shape == (audio.shape[0], frames, cfg.n_mels)
+    assert mel_rel_err(got, mel_power_reference(audio, cfg)) <= MEL_TOL["exact"]
+    db = logmel_from_power(got, cfg).cpu().numpy()
+    err = np.abs(db - np.stack([reference_logmel_np(c, cfg) for c in audio.cpu().numpy()])).max(axis=(1, 2))
+    assert err.max() <= RUNG_BOUNDS[True][1] and np.median(err) <= RUNG_BOUNDS[True][0], err
+
+
+def test_evaluator_towers_on_the_card_match_the_cpu(gen):
+    # InceptionV3 (both pool kinds) and the HTSAT-tiny CLAP tower, float32 with TF32 off, seeded weights
+    from spectrogramgenai_tpu_torch.core.precision import full_float32
+    from spectrogramgenai_tpu_torch.eval.clap import ClapAudioTower
+    from spectrogramgenai_tpu_torch.eval.inception import build_inception
+    from spectrogramgenai_tpu_torch.models.layers import init_weights_
+
+    x = torch.rand(2, 299, 299, 3, generator=torch.Generator().manual_seed(0)) * 2 - 1
+    for fid_pool in (False, True):
+        model = build_inception(None, "cpu", fid_pool=fid_pool)
+        with full_float32():
+            card, cpu, _, _ = _forward_card_and_cpu(model, x, return_features=fid_pool)
+        assert float((card.cpu() - cpu).norm() / cpu.norm()) <= 1e-4
+    tower = init_weights_(ClapAudioTower(), torch.Generator().manual_seed(1)).eval()
+    feats = torch.randn(2, 1, 1001, 64, generator=torch.Generator().manual_seed(2)) * 5 - 20
+    with full_float32():
+        card, cpu, _, _ = _forward_card_and_cpu(tower, feats)
+    assert float((card.cpu() - cpu).norm() / cpu.norm()) <= 1e-4
 
 
 def _forward_card_and_cpu(module, x: torch.Tensor, **kw):

@@ -187,7 +187,16 @@ def test_fid_cli(checkpoints, tmp_path, capsys):
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("FID (classifier 'custom' logits space): ") and "(n1=3, n2=3)" in line
     assert float(line.split(": ")[1].split()[0]) >= 0
-    with pytest.raises(SystemExit, match="not ported yet"):
-        tfid.main(["--dir1", str(tmp_path / "a"), "--dir2", str(tmp_path / "b")])
+    # the InceptionV3 path: JAX's refusal without weights, a score with the port's random init
+    with pytest.raises(SystemExit) as jexit:
+        jfid.main(["--dir1", str(tmp_path / "a"), "--dir2", str(tmp_path / "b")])
+    with pytest.raises(SystemExit) as texit:
+        tfid.main(["--dir1", str(tmp_path / "a"), "--dir2", str(tmp_path / "b"), "--device", "cpu"])
+    assert str(texit.value) == str(jexit.value) and "--allow_random_weights 1" in str(texit.value)
+    tfid.main(["--dir1", str(tmp_path / "a"), "--dir2", str(tmp_path / "b"), "--allow_random_weights", "1",
+               "--device", "cpu"])
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0] == "WARNING: random InceptionV3 weights — FID is NOT meaningful"
+    assert out[1].startswith("FID: ") and out[1].endswith("  (n1=3, n2=3)") and float(out[1].split()[1]) >= 0
     with pytest.raises(FileNotFoundError):
         tfid.load_classifier(str(tmp_path / "none"), num_classes=N_CLASSES, device="cpu")

@@ -321,7 +321,7 @@ def test_config_overrides_match_jax():
 def test_port_imports_without_jax():
     code = """
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "spectrogramgenai_tpu", "pandas", "PIL", "matplotlib"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "spectrogramgenai_tpu", "pandas", "PIL", "matplotlib"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import spectrogramgenai_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
