@@ -8,9 +8,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
   1. device   — CUDA must be available; prints the card's name and power limit
                 (nvidia-smi).
   2. build    — compiles csrc/attention_fwd.cu, csrc/attention_bwd.cu and
-                csrc/mel_power.cu with nvcc from this checkout, one nvcc per
-                source, started together; prints each kernel's registers and
-                spills.
+                csrc/mel_power.cu with nvcc and the host codecs
+                csrc/wav_batch.cpp and csrc/png_batch.cpp with g++ from this
+                checkout, one compiler per source, started together; prints
+                each kernel's registers and spills.
   3. kernel   — the attention kernels against their plain PyTorch version at
                 the UNet's three fused sites (B·H = 216 = serve batch 27 × CFG
                 2 × 4 heads): f32 (the scalar kernel) ≤ 1e-4 with TF32 off,
@@ -34,8 +35,9 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 64×64×4 latent; VQ-VAE hidden 512, 512 codes) with seeded
                 random weights, saved as checkpoints and served through
                 cli.serve.run (DPM-Solver++ 20 steps, serve batch 27);
-                concurrent POST /generate requests for 32 images, /healthz and
-                /stats; every batch must have gone through the tensor-core
+                concurrent POST /generate requests for 32 images (each
+                request's PNGs from the native encoder, /stats'
+                encode_seconds printed), /healthz and /stats; every batch must have gone through the tensor-core
                 attention kernel. One request of 27 asks for "audio": true:
                 27 WAVs at 22,050 Hz of 97,920 samples, peak-normalised, and
                 /stats' audio_seconds for that batch of 27. One served batch's
@@ -56,7 +58,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 card, once per rung: every PNG written and 256×256×3, the
                 exact .npy arrays at the exact rung's bound against the oracle,
                 exact and high PNGs within 2 levels, a kernel launch per batch;
-                specs/s and the decode / mel kernel / dB glue / encode split.
+                specs/s and the decode / mel kernel / dB glue / encode split;
+                the native WAV decoder's rows bit-equal to load_wav +
+                slice_clip, the PNGs read back by the native decoder (0
+                rejected) as the L of their pixels.
   7. attention_bwd — the backward kernels against their plain version and
                 both against float64, per row (dQ by query row, dK and dV by
                 key row, each normalised by its own norm), at the training
@@ -75,7 +80,8 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 > 1, codebook and params moved, the saved step, params,
                 codebook and Adam moments restored bit-equal; s/step, images/s,
                 a step's split (CUDA events), its device time by kernel
-                (torch.profiler) and peak memory.
+                (torch.profiler) and peak memory; the loader's PNG decode
+                (native, 0 rows handed back) and its seconds.
   9. train    — cli.train_ddpm.run from that VQ-VAE checkpoint with the
                 DDPMConfig defaults (UNet width
                 1.0, 64×64×4 latent, bf16, latent cache, batch 32) for 2
@@ -87,6 +93,13 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 noise, keep); images/s, s/step, a step's split (CUDA events),
                 the attention share of a step's device time (torch.profiler),
                 peak memory and the latent-cache encode time.
+  9b. trajectory — cli.generate --sav_denoise_path from that checkpoint: the
+                999-step DDPM chain with CFG over the 27 labels (UNet batch
+                54), 21 steps × 27 classes × 2 PNGs (latent grid, VQ decode),
+                K1 at 3 sites × 999 steps on the tensor-core route, the wall.
+  9c. profile_dir — cli.train_ddpm --profile_dir for 2 steps of batch 32: the
+                Chrome trace loads as JSON and names the attention_fwd and
+                attention_bwd kernels.
  10. classifiers — cli.generate.run writes 3 dpmpp-20 images per class from
                 the trained DDPM ({class}_gen_imgs_{i}_{samp}.png);
                 cli.train_classifiers runs the custom CNN and ResNet18 at 0 and
@@ -95,8 +108,10 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 the best checkpoint, the synthetic count per class, ResNet18's
                 frozen prefix bit-equal to its init with its BatchNorm
                 statistics moved; one train step each of VGG16, MobileNetV2 and
-                the ensemble; cli.eval_classifiers on the best checkpoints;
-                s/epoch, images/s, step times and peak memory.
+                the ensemble; cli.eval_classifiers on the best checkpoints
+                with its confusion PNGs (a viridis block per cell, min to
+                max); s/epoch, images/s, step times and peak memory; the
+                sweep's PNG decode (native, 0 rows handed back).
  11. fid      — tools/port_fid_batch.py with the sweep's best custom synth-0
                 classifier (bf16): FID of val against train, of val against
                 the generated images (finite, ≥ 0) and of val against itself
@@ -130,6 +145,11 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 images/s, one step's device time by kernel (torch.profiler),
                 peak memory; the trained generator's and discriminator's bf16
                 forward on the card against float32 on the CPU.
+ 12b. acgan_manifest — cli.train_acgan in manifest mode (--manifest
+                specdata.npz of the corpus's train rows, --lab_csv, --ai_csv
+                with the 11 acoustic indices, --use_aind true) for one epoch
+                at the ACGANConfig defaults: 16 steps, finite losses, the
+                native decode with 0 rows handed back.
  13. specunet — synthetic noise and bird recordings (a quarter at 44.1 kHz,
                 resampled to 22,050 Hz) with their CSVs; the exact mel kernel
                 at the mix shape (3 × 8 clips of 2¹⁷ samples) against its plain
@@ -183,6 +203,7 @@ REQUESTS = ({"label": "class00", "count": 1}, {"label": 5, "count": 4}, {"label"
             {"label": 7, "count": SERVE_BATCH, "audio": True})
 AUDIO_SR, AUDIO_SAMPLES = 22050, (256 - 1) * 384  # a 256-frame spectrogram's span at hop 384
 KERNEL_SOURCES = ("attention_fwd", "attention_bwd", "mel_power")
+HOST_SOURCES = ("wav_batch", "png_batch")  # the host codecs (g++), built beside the kernels
 TRAIN_BATCH = 32
 TRAIN_BH = TRAIN_BATCH * 4  # no CFG doubling in training
 TRAIN_CLASSES, TRAIN_PER_CLASS, VAL_PER_CLASS = 27, 10, 6  # docs/EXPERIMENT.md's split sizes
@@ -258,8 +279,11 @@ def cuda_ms(fn, runs: int = 10, warmup: int = 3, inner: int = 1) -> float:
 
 
 def png_rgb(png: bytes) -> np.ndarray:
-    """The (height, width, 3) pixels of an 8-bit RGB PNG with no row filters
-    (the port's encoder), after checking its header and inflated size."""
+    """The (height, width, 3) pixels of an 8-bit RGB PNG that the port's native
+    encoder wrote (every row Sub-filtered), after checking its header, its
+    inflated size and its filter bytes."""
+    from spectrogramgenai_tpu_torch.audio.export import decode_png_rgb
+
     check(png.startswith(b"\x89PNG\r\n\x1a\n"), "PNG signature")
     pos, idat, ihdr = 8, b"", None
     while pos < len(png):
@@ -274,9 +298,43 @@ def png_rgb(png: bytes) -> np.ndarray:
     w, h = ihdr[0], ihdr[1]
     raw = zlib.decompress(idat)
     check(len(raw) == h * (1 + 3 * w), "inflated PNG size")
-    rows = np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)
-    check(not rows[:, 0].any(), "unfiltered PNG rows")
-    return rows[:, 1:].reshape(h, w, 3)
+    check(bool((np.frombuffer(raw, np.uint8).reshape(h, 1 + 3 * w)[:, 0] == 1).all()),
+          "Sub-filtered PNG rows (the native encoder's)")
+    return decode_png_rgb(png)
+
+
+@contextlib.contextmanager
+def counted_decode():
+    """Sums the training loaders' PNG decodes (``data/pipeline.decode_gray_batch``)
+    while it is open: {"seconds", "rows"}, and on exit "rejected", the rows the
+    native decoder handed back to the NumPy reader."""
+    from spectrogramgenai_tpu_torch.data import native_png, pipeline
+
+    stats = {"seconds": 0.0, "rows": 0}
+    inner = pipeline.decode_gray_batch
+
+    def timed(paths, *args, **kw):
+        t = time.perf_counter()
+        out = inner(paths, *args, **kw)
+        stats["seconds"] += time.perf_counter() - t
+        stats["rows"] += len(paths)
+        return out
+
+    native_png.load_png_batch_gray.rejected = 0
+    pipeline.decode_gray_batch = timed
+    try:
+        yield stats
+    finally:
+        pipeline.decode_gray_batch = inner
+        stats["rejected"] = native_png.load_png_batch_gray.rejected
+
+
+def log_decode(what: str, stats: dict) -> None:
+    check(stats["rows"] > 0 and stats["rejected"] == 0,
+          f"{what}: {stats['rows']} PNG rows decoded, {stats['rejected']} handed back by the native decoder (0)")
+    log(f"{what}: PNG decode {stats['rows']} rows in {stats['seconds']:.3f} s through the native decoder "
+        f"({stats['rows'] / max(stats['seconds'], 1e-9):.0f} rows/s, host clock, in the loader's thread), "
+        f"0 handed back")
 
 
 def exact64(q, k, v):
@@ -551,7 +609,10 @@ def phase_gen_specs(torch, work: str) -> dict[str, int]:
     from spectrogramgenai_tpu_torch.audio.export import spec_png_name
     from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig, reference_logmel_np
     from spectrogramgenai_tpu_torch.audio.wavio import load_wav, slice_clip
+    from spectrogramgenai_tpu_torch.audio.export import save_spectrogram_npy, spectrogram_rgb
     from spectrogramgenai_tpu_torch.cli import gen_specs
+    from spectrogramgenai_tpu_torch.data.native_png import load_png_batch_gray, save_png_batch_rgb
+    from spectrogramgenai_tpu_torch.data.native_wav import load_wav_batch
     from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_mel_power
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
@@ -588,19 +649,60 @@ def phase_gen_specs(torch, work: str) -> dict[str, int]:
                 rgb.append(png_rgb(f.read()))
             check(rgb[-1].shape == (256, 256, 3), f"{name} inflates to 256×256×3")
         indices[rung] = np.stack([viridis_index(x) for x in rgb])
+        if rung == "exact":
+            exact_rgb = np.stack(rgb)
         log(f"gen_specs {rung}: {n_done} specs in {wall:.3f} s wall → {n_done / wall:.1f} specs/s end to end; "
             f"decode {split.group(1)} s, mel kernel {split.group(2)} s, dB glue {split.group(3)} s, "
             f"encode {split.group(5)} s; "
             f"{launches[rung]} launches")
 
-    # the exact rung's arrays against the float64 oracle
-    worst = 0.0
-    for row, name in zip(rows, names):
-        wav, sr = load_wav(os.path.join(wav_dir, row["file_name"]))
-        want = reference_logmel_np(slice_clip(wav, sr, row["begin_time"], row["end_time"]),
-                                   SpectrogramConfig(sample_rate=sr))
+    # the native WAV decoder's rows (gen_specs' decode) against load_wav + slice_clip, bit for bit,
+    # and the exact rung's arrays against the float64 oracle of those clips
+    t_dec = time.perf_counter()
+    decoded, rates = load_wav_batch([os.path.join(wav_dir, r["file_name"]) for r in rows],
+                                    [r["begin_time"] for r in rows], [r["end_time"] for r in rows], 6.0)
+    t_dec = time.perf_counter() - t_dec
+    worst, loaded = 0.0, {}
+    for row, name, got_clip, got_sr in zip(rows, names, decoded, rates.tolist()):
+        if row["file_name"] not in loaded:
+            loaded = {row["file_name"]: load_wav(os.path.join(wav_dir, row["file_name"]))}
+        wav, sr = loaded[row["file_name"]]
+        clip = slice_clip(wav, sr, row["begin_time"], row["end_time"])
+        check(got_sr == sr and np.array_equal(got_clip[:len(clip)].view(np.int32), clip.view(np.int32))
+              and not got_clip[len(clip):].any(), f"{name}: the native WAV row is load_wav + slice_clip's, bit for bit")
+        want = reference_logmel_np(clip, SpectrogramConfig(sample_rate=sr))
         got = np.load(os.path.join(work, "images_exact", name.replace(".png", ".npy")))
         worst = max(worst, float(np.abs(got - want).max()))
+    log(f"gen_specs: native WAV decoder: {len(rows)} rows ({decoded.shape[1]} samples wide) in {t_dec:.3f} s, "
+        f"bit-equal to load_wav + slice_clip")
+    # the written PNGs back through the native decoder: every row read, L of the written pixels
+    load_png_batch_gray.rejected = 0
+    t_png = time.perf_counter()
+    gray, ok = load_png_batch_gray([os.path.join(work, "images_exact", n) for n in names], 256, 256)
+    t_png = time.perf_counter() - t_png
+    l_want = ((exact_rgb[..., 0].astype(np.uint32) * 19595 + exact_rgb[..., 1].astype(np.uint32) * 38470
+               + exact_rgb[..., 2].astype(np.uint32) * 7471 + 0x8000) >> 16).astype(np.uint8)
+    check(bool(ok.all()) and load_png_batch_gray.rejected == 0, "the native PNG decoder read every PNG (0 rejected)")
+    check(np.array_equal(gray, l_want), "native grayscale decode = PIL's L of the PNGs' pixels")
+    log(f"gen_specs: native PNG decoder: {len(names)} PNGs in {t_png:.3f} s, 0 rejected, L of the pixels exactly")
+    # the encode stage of one batch of 64, split: colormap, native PNG encode + write, .npy writes (host clock)
+    specs = np.stack([np.load(os.path.join(work, "images_exact", n.replace(".png", ".npy"))) for n in names[:64]])
+    split_dir = os.path.join(work, "encode_split")
+    os.makedirs(split_dir)
+    paths = [os.path.join(split_dir, f"{i}.png") for i in range(64)]
+    stages = {"colormap": lambda: spectrogram_rgb(specs),
+              "PNG encode + write": lambda: save_png_batch_rgb(rgb64, paths),
+              ".npy writes": lambda: [save_spectrogram_npy(x, p.replace(".png", ".npy")) for x, p in zip(specs, paths)]}
+    rgb64, times = spectrogram_rgb(specs), {}
+    for stage, fn in stages.items():
+        runs = []
+        for _ in range(3):
+            t = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t)
+        times[stage] = statistics.median(runs)
+    log("gen_specs: the encode stage of a batch of 64 (host clock, median of 3): "
+        + ", ".join(f"{k} {1e3 * v:.1f} ms" for k, v in times.items()))
     check(worst <= RUNG_BOUNDS[True][0],
           f"gen_specs exact .npy vs oracle {worst:.3g} dB <= {RUNG_BOUNDS[True][0]}")
     high_levels = int(np.abs(indices["exact"] - indices["high"]).max())
@@ -744,6 +846,10 @@ def phase_serve(torch, work: str) -> int:
         f"inversion on the card, 32 NNLS + 32 Griffin-Lim iterations, and the WAV encode) → "
         f"{SERVE_BATCH / stats['audio_seconds']:.1f} clips/s")
     log(f"serve: attention kernel launches {launches} (≥ {want}), {mma_launches} on the tensor-core route")
+    enc = stats["encode_seconds"] - warm["encode_seconds"]
+    check(enc > 0, "/stats encode_seconds moved")
+    log(f"serve: PNG encode (native encoder, one call a request) {enc:.3f} s for {n_images} images in "
+        f"{len(REQUESTS)} requests (/stats encode_seconds) → {1e3 * enc / n_images:.3f} ms an image")
 
     model = batcher.task.model
     xb = torch.randn(2 * SERVE_BATCH, latent, latent, cfg.latent_dim, device="cuda", generator=g)
@@ -1629,11 +1735,13 @@ def phase_train_vqvae(torch, cfg=None) -> str:
     steps = 2 * steps_per_epoch
     torch.cuda.reset_peak_memory_stats()
     t_run = time.perf_counter()
-    (task, state), printed = run_quiet(train_vqvae.run, cfg, device="cuda")
+    with counted_decode() as decode:
+        (task, state), printed = run_quiet(train_vqvae.run, cfg, device="cuda")
     wall = time.perf_counter() - t_run
     peak = torch.cuda.max_memory_allocated() / 2**30
     for line in printed.splitlines():
         log(f"train_vqvae run 1: {line}")
+    log_decode("train_vqvae run 1", decode)
     check(state.step == steps, f"VQ-VAE trained {state.step} steps, {steps} expected")
     epochs = re.findall(r"epoch (\d+): (\d+) steps in ([\d.]+) s, ([\d.]+) s/step, ([\d.]+) images/s", printed)
     check(len(epochs) == 2, "two VQ-VAE epoch lines")
@@ -1748,12 +1856,14 @@ def phase_classifiers(torch, ddpm_cfg, img_size: int = 256, batch_size: int = 16
               "--data.batch_size", str(batch_size), "--run.output_dir", "sweep", "--device", "cuda"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    results, printed = run_quiet(train_classifiers.main, ["--train_dir", "datasets/train", "--gen_dir", "gen_images",
-                                                          "--epochs", str(epochs), *common])
+    with counted_decode() as decode:
+        results, printed = run_quiet(train_classifiers.main, ["--train_dir", "datasets/train", "--gen_dir",
+                                                              "gen_images", "--epochs", str(epochs), *common])
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     for line in printed.splitlines():
         log(f"classifiers sweep: {line}")
+    log_decode("classifiers sweep", decode)
     n_real = TRAIN_CLASSES * TRAIN_PER_CLASS
     for model, synth in ((m, s) for m in ("custom", "resnet") for s in synths):
         tag = f"{model}_synth{synth}"
@@ -1828,7 +1938,19 @@ def phase_classifiers(torch, ddpm_cfg, img_size: int = 256, batch_size: int = 16
                                                         f"evaluates to {row['val_accuracy']:.4f} (kept at {want:.4f})")
         log(f"classifiers eval {row['model']}_synth{row['synth']}: val accuracy {row['val_accuracy']:.4f}, "
             f"macro F1 {row['val_f1']:.4f}, top-3 {row['val_top3_acc']:.4f}")
-    check(len(os.listdir("eval")) == 5, "eval_results.csv and four classification reports")
+    check(len(os.listdir("eval")) == 9, "eval_results.csv, four classification reports and four confusion PNGs")
+    # each confusion PNG: a viridis block per cell, scaled from the matrix's min to its max
+    for model, synth in ((m, s) for m in ("custom", "resnet") for s in synths):
+        with open(f"eval/{model}_synth{synth}_confusion_matrix.png", "rb") as f:
+            px = png_rgb(f.read())
+        cell = 256 // TRAIN_CLASSES
+        check(px.shape == (TRAIN_CLASSES * cell, TRAIN_CLASSES * cell, 3), f"confusion PNG {px.shape}")
+        blocks = px.reshape(TRAIN_CLASSES, cell, TRAIN_CLASSES, cell, 3)
+        check(bool((blocks == blocks[:, :1, :, :1]).all()), "one colour a confusion cell")
+        idx = viridis_index(blocks[:, 0, :, 0])
+        check(idx.min() == 0 and idx.max() == 255, "the confusion PNG spans the scale, min to max")
+    log(f"classifiers eval: 4 confusion PNGs of {TRAIN_CLASSES}×{TRAIN_CLASSES} cells, {256 // TRAIN_CLASSES} px a "
+        f"cell, viridis from min to max")
 
 
 def phase_train(torch, vqae_ckpt: str) -> tuple[tuple[int, int], object]:
@@ -2002,6 +2124,163 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
     del batches
 
 
+def phase_trajectory(torch, ddpm_cfg) -> int:
+    """cli.generate --sav_denoise_path from the trained DDPM: the 999-step
+    chain with CFG over the 27 labels, its latent grids and VQ decodes at 21
+    steps. Returns the forward attention kernel's launches (the main path)."""
+    from spectrogramgenai_tpu_torch.audio import export
+    from spectrogramgenai_tpu_torch.cli import generate
+    from spectrogramgenai_tpu_torch.data.manifest import class_names_from_folder
+    from spectrogramgenai_tpu_torch.ops.attention import fused_attention
+    from spectrogramgenai_tpu_torch.train.diffusion_task import DiffusionTask
+
+    classes = class_names_from_folder("datasets/train")
+    steps = ddpm_cfg.noise_steps - 1
+    want_steps = generate.trajectory_steps(ddpm_cfg.noise_steps)
+    # the dumps' share (host clock, each ending in a sync): the VQ decodes and the PNG writes
+    dump_s = {"VQ decode": 0.0, "PNG writes": 0.0}
+    decode, save = DiffusionTask.decode, export.save_generated_pngs
+
+    def timed(key, fn):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            dump_s[key] += time.perf_counter() - t
+            return out
+        return wrapper
+
+    DiffusionTask.decode = timed("VQ decode", decode)
+    export.save_generated_pngs = timed("PNG writes", save)
+    fused_attention.launches = fused_attention.mma_launches = 0  # the main path starts here
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        _, printed = run_quiet(generate.run, ddpm_cfg, "gen_traj_images", 1, 0, classes,
+                               sav_denoise_path="trajectory", device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        DiffusionTask.decode, export.save_generated_pngs = decode, save
+    wall = time.perf_counter() - t0
+    launches, mma_launches = fused_attention.launches, fused_attention.mma_launches  # the main path ends here
+    check("not saving images, just noise portions" in printed, "the reference's message")
+    names = set(os.listdir("trajectory"))
+    want = {f"{c}_noise_{i}_{kind}.png" for c in classes for i in want_steps for kind in ("latent", "decode")}
+    check(len(want_steps) == 21 and names == want, f"{len(names)} trajectory PNGs, {len(want)} expected "
+                                                   f"(21 steps × {len(classes)} classes × 2)")
+    check(not os.listdir("gen_traj_images"), "no final images beside the trajectory")
+    side = ddpm_cfg.img_size // ddpm_cfg.latent_downscale
+    for c in (classes[0], classes[-1]):
+        with open(f"trajectory/{c}_noise_1_latent.png", "rb") as f:
+            check(png_rgb(f.read()).shape == (2 * side, 2 * side, 3), f"a latent grid of 2 × 2 channels of {side}²")
+        with open(f"trajectory/{c}_noise_1_decode.png", "rb") as f:
+            check(png_rgb(f.read()).shape == (ddpm_cfg.img_size, ddpm_cfg.img_size, 3), "a decode of the image size")
+    check(launches == mma_launches >= 3 * steps, f"K1 launches {launches} on the tensor-core route "
+                                                 f"({mma_launches}) >= 3 sites × {steps} steps")
+    log(f"trajectory: cli.generate --sav_denoise_path, the {steps}-step DDPM chain with CFG at {len(classes)} labels "
+        f"(UNet batch {2 * len(classes)}, {ddpm_cfg.compute_dtype}) and {len(names)} PNGs at {len(want_steps)} steps "
+        f"in {wall:.2f} s wall ({1e3 * wall / steps:.2f} ms a step with the dumps); the dumps: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in dump_s.items())
+        + f"; the chain alone {wall - sum(dump_s.values()):.2f} s "
+        f"({1e3 * (wall - sum(dump_s.values())) / steps:.2f} ms a step); K1 launches {launches}, all on the "
+        f"tensor-core route")
+    return launches
+
+
+def phase_profile_dir(torch, ddpm_cfg) -> None:
+    """cli.train_ddpm --profile_dir for 2 steps of batch 32 (64 images of the
+    corpus) with the trained run's model config and VQ-VAE: the Chrome trace
+    loads and names both attention kernels."""
+    from spectrogramgenai_tpu_torch.cli import train_ddpm
+    from spectrogramgenai_tpu_torch.utils.profiling import TRACE_FILE
+
+    linked = 0  # 2 batches of images, links into the corpus
+    for c in sorted(os.listdir("datasets/train")):
+        os.makedirs(f"datasets_prof/train/{c}")
+        for name in sorted(os.listdir(f"datasets/train/{c}"))[:2 * TRAIN_BATCH - linked]:
+            os.link(f"datasets/train/{c}/{name}", f"datasets_prof/train/{c}/{name}")
+            linked += 1
+        if linked == 2 * TRAIN_BATCH:
+            break
+    cfg = ddpm_cfg  # the trained run's model, on the 2 batches
+    args = ["--profile_dir", "prof", "--data.dataset_path", "datasets_prof", "--data.batch_size", str(TRAIN_BATCH),
+            "--data.img_size", str(cfg.data.img_size), "--img_size", str(cfg.img_size), "--num_classes",
+            str(cfg.num_classes), "--width_mult", str(cfg.width_mult), "--remove_deep_conv", str(cfg.remove_deep_conv),
+            "--vq_hidden_dim", str(cfg.vq_hidden_dim), "--vq_n_embeddings", str(cfg.vq_n_embeddings),
+            "--compute_dtype", cfg.compute_dtype, "--vqae_ckpt", cfg.vqae_ckpt, "--epochs", "1",
+            "--run.run_name", "smoke_prof", "--do_validation", "false"]
+    t0 = time.perf_counter()
+    state, printed = run_quiet(train_ddpm.main, args)
+    wall = time.perf_counter() - t0
+    path = os.path.join("prof", TRACE_FILE)
+    size = os.path.getsize(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    fwd = sorted(k for k in kernels if "attention_fwd" in k)
+    bwd = sorted(k for k in kernels if "attention_bwd" in k)
+    check(state.step == 2, f"the profiled run trained {state.step} steps (2)")
+    check(bool(fwd) and bool(bwd), f"the trace names attention_fwd ({fwd}) and attention_bwd ({bwd}) kernels")
+    log(f"profile_dir: cli.train_ddpm --profile_dir, 2 steps of batch {TRAIN_BATCH} with the latent cache and a "
+        f"preview, in {wall:.2f} s wall; {path}: {size / 2**20:.1f} MiB, {len(events)} events, {len(kernels)} kernel "
+        f"names, among them {', '.join(fwd + bwd)}")
+
+
+def phase_acgan_manifest(torch, batch_size: int = 16, extra: tuple = ()) -> None:
+    """cli.train_acgan in manifest mode for one epoch at the ACGANConfig
+    defaults with the acoustic indices: a specdata.npz of the corpus's train
+    rows, a label CSV and an acoustic-index CSV, the images in one folder."""
+    from spectrogramgenai_tpu_torch.audio.export import spec_png_name
+    from spectrogramgenai_tpu_torch.cli import train_acgan
+    from spectrogramgenai_tpu_torch.data.manifest import read_detection_manifest
+
+    per_class = TRAIN_PER_CLASS + VAL_PER_CLASS
+    rows = [r for i, r in enumerate(read_detection_manifest("manifest.csv")) if i % per_class < TRAIN_PER_CLASS]
+    os.makedirs("manifest_images")
+    for r in rows:
+        name = spec_png_name(r["file_name"], r["begin_time"])
+        os.link(f"datasets/train/{r['common_name']}/{name}", f"manifest_images/{name}")
+    columns = ["file_name", "begin_time", "end_time", "common_name"]
+    # times of three decimals, which the CSV reader parses back exactly: the merge matches on them
+    table = [[i, r["file_name"], round(r["begin_time"], 3), round(r["end_time"], 3), r["common_name"]]
+             for i, r in enumerate(rows)]
+    np.savez("specdata.npz", train_df=np.asarray(table, dtype=object), test_df=np.asarray(table[:4], dtype=object),
+             categories=np.asarray(sorted({r["common_name"] for r in rows})))
+    with open("labels.csv", "w", newline="") as f:
+        csv.writer(f).writerow(columns)
+    rng = np.random.default_rng(8)
+    with open("indices.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["file_path", "begin_time", "end_time", *train_acgan.INDEX_COLUMNS])
+        for t in table:
+            writer.writerow([t[1], t[2], t[3], *rng.normal(size=len(train_acgan.INDEX_COLUMNS)).round(6)])
+    args = ["--manifest", "specdata.npz", "--lab_csv", "labels.csv", "--ai_csv", "indices.csv", "--im_path",
+            "manifest_images", "--use_aind", "true", "--epochs", "2", "--num_classes", str(TRAIN_CLASSES),
+            "--run.run_name", "smoke_acgan_manifest", "--data.batch_size", str(batch_size), *extra]
+    steps = len(rows) // batch_size
+    t0 = time.perf_counter()
+    with counted_decode() as decode:
+        (task, state), printed = run_quiet(train_acgan.main, args)
+    wall = time.perf_counter() - t0
+    for line in printed.splitlines():
+        log(f"acgan_manifest: {line}")
+    log_decode("acgan_manifest", decode)
+    check(state.step == steps, f"manifest-mode ACGAN trained {state.step} steps ({steps})")
+    check(task.discriminator.n_ind == len(train_acgan.INDEX_COLUMNS), "the discriminator has its acoustic-index head")
+    with open("results/smoke_acgan_manifest/training_results.csv", newline="") as f:
+        result = list(csv.DictReader(f))
+    check([r["Epoch"] for r in result] == ["1"] and all(math.isfinite(float(v)) for v in result[0].values()),
+          "one CSV row of finite losses")
+    epoch = re.search(r"epoch 1: (\d+) steps in ([\d.]+) s, ([\d.]+) s/step, ([\d.]+) images/s", printed)
+    check(epoch is not None, "the epoch line")
+    log(f"acgan_manifest: {len(rows)} manifest rows merged with {len(table)} acoustic-index rows, z-normalised; "
+        f"{steps} steps of batch {batch_size} with a_ind in {wall:.2f} s wall (with model build); epoch 1 "
+        f"{epoch.group(3)} s/step, {epoch.group(4)} images/s")
+    del task, state
+    torch.cuda.empty_cache()
+
+
 def log_profile(torch, what: str, fn) -> set[str]:
     """Runs fn() once under torch.profiler and prints its device time, the
     attention kernels' shares and the top kernels; returns the names of the
@@ -2060,8 +2339,8 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.build(KERNEL_SOURCES)  # one nvcc per source, started together
-    log(f"build: {', '.join(KERNEL_SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
+    _build.build(KERNEL_SOURCES + HOST_SOURCES)  # one nvcc (g++ for the host codecs) per source, started together
+    log(f"build: {', '.join(KERNEL_SOURCES + HOST_SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNEL_SOURCES:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "entry function" in line:
@@ -2087,17 +2366,21 @@ def main() -> int:
         timed("datasets", make_train_datasets, work)
         vqae_ckpt = timed("train_vqvae", phase_train_vqvae, torch)
         train_launches, ddpm_cfg = timed("train", phase_train, torch, vqae_ckpt)
+        traj_launches = timed("trajectory", phase_trajectory, torch, ddpm_cfg)
+        timed("profile_dir", phase_profile_dir, torch, ddpm_cfg)
         timed("classifiers", phase_classifiers, torch, ddpm_cfg)
         timed("fid", phase_fid, torch)
         eval_launches = timed("evaluators", phase_evaluators, torch, work)
         timed("acgan", phase_acgan, torch)
+        timed("acgan_manifest", phase_acgan_manifest, torch)
         specunet_launches, denoiser_ckpt = timed("specunet", phase_specunet, torch, work)
         timed("denoised_classifiers", phase_denoised_classifiers, torch, denoiser_ckpt)
         os.chdir(REPO)
 
     kernels = [{"name": "attention_fwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_fwd.cu",
-                "replaces": "spectrogramgenai_tpu/ops/attention.py:83", "launches": launches + train_launches[0],
+                "replaces": "spectrogramgenai_tpu/ops/attention.py:83",
+                "launches": launches + train_launches[0] + traj_launches,
                 **kern},
                {"name": "attention_bwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_bwd.cu",

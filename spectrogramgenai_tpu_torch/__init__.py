@@ -11,10 +11,13 @@ dynamic-batching HTTP server, the generate CLI), the wav → log-mel front end
 the SpecUNet denoiser/separator (train_acgan, train_specunet), and the
 evaluators: InceptionV3 IS and FID (inception_score, fid), the CLAP audio
 tower and FAD (fad), verify_metrics, with converted flax weights read by
-core/flax_msgpack. The self-attention
-forward and backward and the mel power spectrogram run in hand-written CUDA
-kernels (``csrc/``) on the card; on a CPU tensor each wrapper computes its
-plain PyTorch version. Imports torch, never JAX.
+core/flax_msgpack; the ACGAN's manifest mode, the trajectory dump
+(generate --sav_denoise_path), train_ddpm --profile_dir and utils/misc. The
+self-attention forward and backward and the mel power spectrogram run in
+hand-written CUDA kernels (``csrc/*.cu``) on the card; on a CPU tensor each
+wrapper computes its plain PyTorch version. The host's WAV decoder and PNG
+codec are C++ thread pools (``csrc/*.cpp``, built with g++ at first use).
+Imports torch, never JAX.
 """
 
 __version__ = "0.1.0"

@@ -1,23 +1,28 @@
 """Spectrogram and generated-image export: viridis colormap, PNG encoding and decoding.
 
 Counterpart of ``spectrogramgenai_tpu/audio/export.py`` without PIL or
-matplotlib: the viridis table is a constant here, and the PNG encoder and
-reader are the standard library's ``zlib`` and ``struct`` with NumPy. Output
-is 8-bit RGB, pixel-equal to the JAX package's viridis PNGs (the bytes may
-differ). :func:`load_image_grayscale` reads what ``native/png_batch.cpp``
-reads (8-bit, non-interlaced, colour types 0, 2, 3, 4, 6, all five row
-filters) and converts as PIL's ``convert("L")`` does, bit for bit.
+matplotlib: the viridis table is a constant here. Every PNG the package
+writes goes through the batch encoder of ``data/native_png.py``
+(``csrc/png_batch.cpp``: 8-bit RGB, Sub filter, zlib level 3, a C++ thread
+pool), as the JAX package's batch writers and server do; the output is
+pixel-equal to the JAX package's viridis PNGs (the bytes may differ from its
+PIL path). :func:`load_image_grayscale` and :func:`load_image_rgb` are the
+NumPy reader (``zlib`` and ``struct``): it reads what ``csrc/png_batch.cpp``
+decodes (8-bit, non-interlaced, colour types 0, 2, 3, 4, 6, all five row
+filters) and converts as PIL's ``convert("L")`` / ``convert("RGB")`` do, bit
+for bit.
 """
 
 from __future__ import annotations
 
-import concurrent.futures
 import math
 import os
 import struct
 import zlib
 
 import numpy as np
+
+from spectrogramgenai_tpu_torch.data.native_png import encode_png_batch_rgb, save_png_batch_rgb
 
 # matplotlib's viridis sampled at i/255 for i = 0 … 255, as uint8 RGB
 # ((cm.viridis(np.arange(256) / 255.0) * 255).astype(np.uint8)[:, :3]).
@@ -42,24 +47,14 @@ _VIRIDIS_HEX = (
 VIRIDIS_LUT = np.frombuffer(bytes.fromhex(_VIRIDIS_HEX), dtype=np.uint8).reshape(256, 3)
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-ENCODE_THREADS = 8  # PNG encodes of a spectrogram batch in flight (the JAX package's default)
 
 
-def _chunk(kind: bytes, data: bytes) -> bytes:
-    return struct.pack(">I", len(data)) + kind + data + struct.pack(">I", zlib.crc32(kind + data))
-
-
-def encode_png_rgb(rgb: np.ndarray, level: int = 6) -> bytes:
-    """(H, W, 3) uint8 → PNG bytes (8-bit RGB, no filtering, zlib ``level``)."""
+def encode_png_rgb(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 → PNG bytes (8-bit RGB, Sub filter, zlib level 3)."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"expected (H, W, 3) uint8, got {rgb.shape} {rgb.dtype}")
-    h, w, _ = rgb.shape
-    rows = np.zeros((h, 1 + 3 * w), dtype=np.uint8)  # filter byte 0 before each row
-    rows[:, 1:] = rgb.reshape(h, 3 * w)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)  # 8-bit truecolour
-    return (_PNG_SIGNATURE + _chunk(b"IHDR", ihdr)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+    return encode_png_batch_rgb(rgb[None])[0]
 
 
 def viridis_rgb(imgs_uint8: np.ndarray) -> np.ndarray:
@@ -71,21 +66,22 @@ def viridis_rgb(imgs_uint8: np.ndarray) -> np.ndarray:
 
 
 def generated_png_bytes(imgs_uint8: np.ndarray) -> list[bytes]:
-    """A batch of uint8 samples (n, H, W[, 1]) → one viridis PNG each."""
-    return [encode_png_rgb(rgb) for rgb in viridis_rgb(imgs_uint8)]
+    """A batch of uint8 samples (n, H, W[, 1]) → one viridis PNG each, in one native call."""
+    return encode_png_batch_rgb(viridis_rgb(imgs_uint8))
 
 
-def _write_png(rgb: np.ndarray, path: str) -> None:
-    data = encode_png_rgb(rgb)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(data)
+def _write_pngs(rgb: np.ndarray, paths: list[str]) -> None:
+    """(n, H, W, 3) uint8 → one PNG file each, in one native call; makes the directories."""
+    if len(rgb) != len(paths):
+        raise ValueError(f"{len(rgb)} images for {len(paths)} paths")
+    for d in {os.path.dirname(p) for p in paths} - {""}:
+        os.makedirs(d, exist_ok=True)
+    save_png_batch_rgb(rgb, paths)
 
 
 def save_generated_pngs(imgs_uint8: np.ndarray, paths: list[str]) -> None:
     """Write each uint8 sample of (n, H, W[, 1]) as a viridis PNG to its path."""
-    for rgb, path in zip(viridis_rgb(imgs_uint8), paths, strict=True):
-        _write_png(rgb, path)
+    _write_pngs(viridis_rgb(imgs_uint8), paths)
 
 
 def save_panel_grid(rows: list[list[np.ndarray]], path: str, gap: int = 4) -> None:
@@ -106,7 +102,7 @@ def save_panel_grid(rows: list[list[np.ndarray]], path: str, gap: int = 4) -> No
             top = r * (cell_h + gap) + (cell_h - rgb.shape[0]) // 2
             left = c * (cell_w + gap) + (cell_w - rgb.shape[1]) // 2
             canvas[top:top + rgb.shape[0], left:left + rgb.shape[1]] = rgb
-    _write_png(canvas, path)
+    _write_pngs(canvas[None], [path])
 
 
 def spec_png_name(file_name: str, begin_time: float) -> str:
@@ -127,18 +123,23 @@ def spectrogram_rgb(specs: np.ndarray) -> np.ndarray:
     return VIRIDIS_LUT[np.clip((img01 * 256.0).astype(np.int32), 0, 255)]
 
 
+def save_confusion_png(cm: np.ndarray, path: str, cell: int | None = None) -> None:
+    """A (k, k) confusion matrix → a viridis PNG, ``cell`` × ``cell`` pixels a
+    count (by default the largest that keeps the image within 256 pixels),
+    row i (true class) at the top and column j (predicted) at the left, with no
+    text: the colours of matplotlib's ``imshow(cm, cmap="viridis")``, scaled
+    from the matrix's min to its max."""
+    cm = np.asarray(cm, np.float64)
+    cell = cell or max(1, 256 // max(cm.shape))
+    _write_pngs(spectrogram_rgb(cm[None]).repeat(cell, axis=1).repeat(cell, axis=2), [path])
+
+
 def save_spectrogram_pngs(specs: np.ndarray, paths: list[str]) -> None:
     """Write each (H, W) spectrogram of ``specs`` as a viridis PNG to its path.
 
-    The colormap is one vectorised pass over the batch; the zlib encodes and
-    writes run in a thread pool (``zlib.compress`` releases the GIL)."""
-    rgb = spectrogram_rgb(specs)
-    if len(rgb) != len(paths):
-        raise ValueError(f"{len(rgb)} spectrograms for {len(paths)} paths")
-    with concurrent.futures.ThreadPoolExecutor(max_workers=ENCODE_THREADS) as pool:
-        futures = [pool.submit(_write_png, im, p) for im, p in zip(rgb, paths)]
-        for fut in futures:
-            fut.result()
+    The colormap is one vectorised pass over the batch; the encodes and
+    writes are one call into the native encoder's thread pool."""
+    _write_pngs(spectrogram_rgb(specs), paths)
 
 
 _COLOUR_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # gray, RGB, palette, gray + alpha, RGBA
@@ -158,10 +159,15 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
 
 def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     """Undo the PNG row filters of (h, 1 + stride) uint8 rows → (h, stride).
-    Rows of filter 0 (the port's own PNGs) take one vectorised pass."""
+    Rows of filters 0 and 1 only (the port's own PNGs are Sub) take one
+    vectorised pass."""
     kinds, data = rows[:, 0], rows[:, 1:]
     if not kinds.any():
         return data
+    if kinds.max() <= 1:  # Sub: a running sum along the row, per byte of the pixel, mod 256
+        h, stride = data.shape
+        summed = np.cumsum(data.reshape(h, -1, bpp), axis=1, dtype=np.uint8).reshape(h, stride)
+        return np.where(kinds[:, None] == 1, summed, data)
     if kinds.max() > 4:
         raise ValueError(f"unsupported PNG row filter {int(kinds.max())}")
     h, stride = data.shape

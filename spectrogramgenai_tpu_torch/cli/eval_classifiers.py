@@ -4,9 +4,11 @@ Reloads each (model × synthetic count) best-validation checkpoint that
 ``cli.train_classifiers`` wrote, evaluates it on ``--val_dir`` (and
 ``--test_dir``) with the full metric suite, and writes
 ``<out_dir>/eval_results.csv`` (one row per checkpoint) and, with a test
-set, ``<out_dir>/<tag>_classification_report.csv`` (one row per class). The
-JAX CLI's confusion-matrix figure is not ported. Runs on CUDA unless
-``--device`` says otherwise.
+set, ``<out_dir>/<tag>_classification_report.csv`` (one row per class) and
+``<out_dir>/<tag>_confusion_matrix.png``: the JAX CLI's matplotlib heat map
+as its colours only, a viridis block per cell scaled from the matrix's min
+to its max, with no axes or text (``audio/export.save_confusion_png``). Runs
+on CUDA unless ``--device`` says otherwise.
 
   python -m spectrogramgenai_tpu_torch.cli.eval_classifiers --val_dir datasets/val \\
       --test_dir datasets/test --models custom,resnet --synths 0,50
@@ -22,6 +24,7 @@ import os
 
 def eval_one(model_name: str, synth: int, args, cfg_base, device: str = "cuda") -> dict | None:
     """The metrics row of one checkpoint, or None if it has no best checkpoint."""
+    from spectrogramgenai_tpu_torch.audio.export import save_confusion_png
     from spectrogramgenai_tpu_torch.cli.common import resolve_device
     from spectrogramgenai_tpu_torch.cli.train_classifiers import evaluate, run_tag
     from spectrogramgenai_tpu_torch.core.checkpoint import CheckpointManager
@@ -56,6 +59,7 @@ def eval_one(model_name: str, synth: int, args, cfg_base, device: str = "cuda") 
         out.update({f"test_{k}": v for k, v in test_m.compute().items()})
         write_rows(os.path.join(args.out_dir, f"{tag}_classification_report.csv"),
                    test_m.classification_report(val_src.classes))
+        save_confusion_png(test_m.cm, os.path.join(args.out_dir, f"{tag}_confusion_matrix.png"))
     return out
 
 

@@ -1,11 +1,15 @@
 """Bulk wav → 256×256 log-mel spectrogram export.
 
-Reads a manifest CSV of (file_name, begin_time, end_time, common_name) rows,
-slices the reference's 6-s windows, computes log-mel spectrograms in batches
+Reads a manifest of (file_name, begin_time, end_time, common_name) rows (a
+CSV, or the ``train_df`` split of a ``specdata.npz``), decodes the
+reference's 6-s windows with the native batch WAV decoder
+(``data/native_wav.py``, bit-equal to ``audio/wavio.load_wav`` +
+``slice_clip``), computes log-mel spectrograms in batches of one sample rate
 through the fused mel kernel (``ops/mel_kernel.py``, hand-written CUDA), and
-writes viridis PNGs named ``{file}_{begin}_{begin}.png`` (plus the exact
-float32 arrays as .npy with --save_npy 1). Runs on CUDA unless --device cpu
-is asked for, which computes the kernels' plain PyTorch version instead.
+writes viridis PNGs named ``{file}_{begin}_{begin}.png`` through the native
+PNG encoder (plus the exact float32 arrays as .npy with --save_npy 1). A
+missing or unreadable WAV is skipped. Runs on CUDA unless --device cpu is
+asked for, which computes the kernels' plain PyTorch version instead.
 
   python -m spectrogramgenai_tpu_torch.cli.gen_specs --manifest specdata.csv \\
       --wav_dir Birdnet_conf_files --out_dir images [--skip_existing 1] [--exact 1|high|0]
@@ -21,6 +25,7 @@ import numpy as np
 import torch
 
 EXACT_CHOICES = {"0": False, "1": True, "high": "high"}
+DECODE_THREADS = 8  # the native WAV decoder's threads (the JAX CLI's)
 
 
 def run(manifest: str, wav_dir: str, out_dir: str, batch_size: int = 64, skip_existing: bool = True,
@@ -32,9 +37,9 @@ def run(manifest: str, wav_dir: str, out_dir: str, batch_size: int = 64, skip_ex
         spec_png_name,
     )
     from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig
-    from spectrogramgenai_tpu_torch.audio.wavio import load_wav, slice_clip
     from spectrogramgenai_tpu_torch.cli.common import DeviceTimer, resolve_device
     from spectrogramgenai_tpu_torch.data.manifest import read_detection_manifest
+    from spectrogramgenai_tpu_torch.data.native_wav import load_wav_batch
     from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_mel_power, logmel_from_power, rung_name
 
     rung_name(exact)  # reject a bad value before any work
@@ -67,26 +72,28 @@ def run(manifest: str, wav_dir: str, out_dir: str, batch_size: int = 64, skip_ex
         n_done += len(batch)
         n_batches += 1
 
-    cached_path, cached = None, None  # consecutive rows often share a recording
+    todo = []
     for row in rows:
-        name = spec_png_name(row["file_name"], row["begin_time"])
-        if skip_existing and os.path.exists(os.path.join(out_dir, name)):
+        if skip_existing and os.path.exists(os.path.join(out_dir, spec_png_name(row["file_name"], row["begin_time"]))):
             continue  # birdnet_all_spec.py:41-42 semantics
         wav_path = os.path.join(wav_dir, row["file_name"])
-        if not os.path.exists(wav_path):
-            continue
+        if os.path.exists(wav_path):
+            todo.append((row, wav_path))
+
+    chunk = 4 * batch_size  # rows a native call decodes
+    for start in range(0, len(todo), chunk):
+        part = todo[start:start + chunk]
         t_dec = time.perf_counter()
-        if wav_path != cached_path:
-            try:
-                cached_path, cached = wav_path, load_wav(wav_path)
-            except (OSError, ValueError):  # unreadable file: skipped, as the JAX CLI's decoder does
-                cached_path, cached = wav_path, None
-        if cached is not None:
-            wav, sr = cached
-            pending.setdefault(sr, []).append((row, slice_clip(wav, sr, row["begin_time"], row["end_time"])))
+        clips, rates = load_wav_batch([p for _, p in part], [r["begin_time"] for r, _ in part],
+                                      [r["end_time"] for r, _ in part], 6.0, num_threads=DECODE_THREADS)
         decode_s += time.perf_counter() - t_dec
-        if cached is not None and len(pending[sr]) >= batch_size:
-            flush(sr)
+        for (row, _), clip, sr in zip(part, clips, rates.tolist()):
+            if sr <= 0:
+                continue  # unreadable: skipped, as the JAX CLI does
+            # a copy: a view would keep the whole chunk's buffer alive until its rate's batch is full
+            pending.setdefault(sr, []).append((row, clip[:int(6.0 * sr)].copy()))
+            if len(pending[sr]) >= batch_size:
+                flush(sr)
     for sr in list(pending):
         flush(sr)
 

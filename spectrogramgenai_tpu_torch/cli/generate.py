@@ -4,7 +4,11 @@ Loads a trained DDPM checkpoint and writes `num_samples` rounds of
 one-image-per-class viridis PNGs named ``{class}_gen_imgs_{i}_{samp}.png``;
 with ``--audio_dir`` also each sample inverted to ``{png stem}.wav`` (the
 inversion of ``cli.spec_to_wav``, on the same device, without the PNG round
-trip).
+trip). ``--sav_denoise_path DIR`` writes, instead of final images, the
+reference's denoising trajectory: the 999-step DDPM chain (with CFG) over one
+label per class, and at steps 999, every multiple of 50 and 1 the 2×2 grid of
+the 4 latent channels and the VQ decode of each sample,
+``{class}_noise_{i}_latent.png`` and ``{class}_noise_{i}_decode.png``.
 
   python -m spectrogramgenai_tpu_torch.cli.generate --run.run_name ddpm \\
       --img_folder gen_images --num_samples 10 --start_idx 0 [--audio_dir gen_audio]
@@ -15,18 +19,26 @@ from __future__ import annotations
 import argparse
 import os
 
+import numpy as np
 import torch
 
 
 def run(cfg, img_folder: str, num_samples: int, start_idx: int, class_names: list[str],
         use_ema: bool = False, sampler: str = "ddpm", num_steps: int = 50,
-        device: str = "cuda", audio_dir: str | None = None, audio_out_sr: int | None = None):
+        device: str = "cuda", audio_dir: str | None = None, audio_out_sr: int | None = None,
+        sav_denoise_path: str | None = None):
     from spectrogramgenai_tpu_torch.audio.export import save_generated_pngs
     from spectrogramgenai_tpu_torch.cli.common import load_task, resolve_device
 
     task = load_task(cfg, resolve_device(device), use_ema=use_ema)
     os.makedirs(img_folder, exist_ok=True)
     labels = torch.arange(cfg.num_classes)
+
+    if sav_denoise_path:
+        generator = torch.Generator(device=task.device).manual_seed(0)
+        dump_denoise_trajectory(task, labels, class_names, sav_denoise_path, generator=generator)
+        print("not saving images, just noise portions")  # the reference's message
+        return
 
     # k rounds per chain: one reverse chain over k·num_classes labels
     rounds_per_chain = max(1, min(cfg.rounds_per_chain, num_samples))
@@ -50,6 +62,50 @@ def run(cfg, img_folder: str, num_samples: int, start_idx: int, class_names: lis
         remaining -= k
 
 
+def trajectory_steps(noise_steps: int) -> set[int]:
+    """The chain steps the dump writes: the first (noise_steps − 1), every multiple of 50, and 1."""
+    return {i for i in range(noise_steps - 1, 0, -1) if i % 50 == 0 or i in (1, noise_steps - 1)}
+
+
+def latent_grid_uint8(x: np.ndarray) -> np.ndarray:
+    """Clipped latents (n, S, S, 4) → (n, 2S, 2S) uint8: channels 0 1 / 2 3 in a 2×2 grid, (x + 1) / 2 · 255."""
+    grid = np.concatenate([np.concatenate([x[..., 0], x[..., 1]], axis=2),
+                           np.concatenate([x[..., 2], x[..., 3]], axis=2)], axis=1)
+    return ((grid + 1) / 2 * 255).astype(np.uint8)
+
+
+@torch.inference_mode()
+def dump_denoise_trajectory(task, labels, class_names: list[str], out_dir: str, *,
+                            generator: torch.Generator | None = None, x_T: torch.Tensor | None = None,
+                            noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Run the DDPM chain over ``labels`` (with the config's CFG scale) and,
+    at each step of :func:`trajectory_steps`, write every sample's latent
+    grid and VQ decode as viridis PNGs under ``out_dir``. Only those steps
+    leave the device. ``x_T`` and ``noise`` as in ``ddpm_sample``. Returns the
+    chain's last state (before any clamp)."""
+    from spectrogramgenai_tpu_torch.audio.export import save_generated_pngs
+    from spectrogramgenai_tpu_torch.diffusion.ddpm import ddpm_sample
+
+    if task.vqvae is None or task.channels != 4:
+        raise ValueError("the trajectory dump needs the latent model (4 latent channels and the VQ-VAE)")
+    os.makedirs(out_dir, exist_ok=True)
+    labels = torch.as_tensor(labels, dtype=torch.long, device=task.device)
+    names = [class_names[lab] for lab in labels.tolist()]
+    want = trajectory_steps(task.schedule.noise_steps)
+
+    def save(i: int, x: torch.Tensor) -> None:
+        if i not in want:
+            return
+        x = torch.clamp(x, -1.0, 1.0)
+        save_generated_pngs(latent_grid_uint8(x.cpu().numpy()),
+                            [os.path.join(out_dir, f"{n}_noise_{i}_latent.png") for n in names])
+        save_generated_pngs(task.decode(x).cpu().numpy(),
+                            [os.path.join(out_dir, f"{n}_noise_{i}_decode.png") for n in names])
+
+    return ddpm_sample(task.model, task.schedule, labels, (task.sample_size, task.sample_size, task.channels),
+                       cfg_scale=task.cfg.cfg_scale, generator=generator, x_T=x_T, noise=noise, callback=save)
+
+
 def _write_audio(imgs_uint8, png_paths: list[str], audio_dir: str, out_sr: int | None,
                  device: torch.device | str = "cuda") -> None:
     """Invert the in-memory uint8 samples on ``device`` and write
@@ -71,6 +127,9 @@ def main(argv=None):
     p.add_argument("--img_folder", default="gen_images")
     p.add_argument("--num_samples", type=int, default=1)
     p.add_argument("--start_idx", type=int, default=0)
+    p.add_argument("--sav_denoise_path", default=None,
+                   help="write the 999-step chain's latent grids and VQ decodes every 50 steps here, "
+                        "instead of final images")
     p.add_argument("--use_ema", type=int, default=0)
     p.add_argument("--sampler", default="ddpm", choices=["ddpm", "ddim", "dpmpp"],
                    help="ddpm = reference-parity 999-step chain; ddim = fast 1st-order "
@@ -96,7 +155,8 @@ def main(argv=None):
         class_names = [f"class{i:02d}" for i in range(cfg.num_classes)]
 
     run(cfg, a.img_folder, a.num_samples, a.start_idx, class_names, bool(a.use_ema),
-        a.sampler, a.num_steps, device=a.device, audio_dir=a.audio_dir, audio_out_sr=a.audio_out_sr)
+        a.sampler, a.num_steps, device=a.device, audio_dir=a.audio_dir, audio_out_sr=a.audio_out_sr,
+        sav_denoise_path=a.sav_denoise_path)
 
 
 if __name__ == "__main__":

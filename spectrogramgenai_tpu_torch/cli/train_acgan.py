@@ -1,7 +1,10 @@
 """ACGAN trainer CLI (``spectrogramgenai_tpu/cli/train_acgan.py``) on one device.
 
 Image-folder input (each class a subdirectory of
-``<dataset_path>/<train_folder>``); a per-epoch ``training_results.csv``
+``<dataset_path>/<train_folder>``), or the reference's manifest mode
+(``--manifest specdata.npz``: its train split, named by the columns of
+``--lab_csv``, the images under ``--im_path``; with ``--use_aind true`` and
+``--ai_csv``, the acoustic indices merged in and z-normalised); a per-epoch ``training_results.csv``
 with the reference's columns (Epoch, Loss_D, Loss_G, Loss_A — the last is
 the discriminator's class accuracy); an eval-noise sample grid
 ``fake_samples_epoch_XXX.png`` every ``sample_every`` batches; checkpoints
@@ -9,12 +12,13 @@ under ``models/<run_name>`` every 10 epochs and at the last, named by the
 epoch. ``--st_epochs`` resumes from the checkpoint of that epoch, rounded
 down to a multiple of 10. As in the JAX CLI the epochs run from
 ``st_epochs + 1`` to ``epochs − 1``, and no denoiser is passed to the task
-whatever ``--use_denoiser`` says (ROADMAP queue 3). The JAX CLI's
-DataFrame mode (``--manifest``, ``--lab_csv``, ``--ai_csv``) is not ported.
-Runs on CUDA unless ``--device`` says otherwise.
+whatever ``--use_denoiser`` says (ROADMAP queue 3). Runs on CUDA unless
+``--device`` says otherwise.
 
   python -m spectrogramgenai_tpu_torch.cli.train_acgan --data.dataset_path datasets \\
       --data.train_folder train --epochs 200
+  python -m spectrogramgenai_tpu_torch.cli.train_acgan --manifest specdata.npz --lab_csv labels.csv \\
+      --im_path images [--use_aind true --ai_csv indices.csv]
 """
 
 from __future__ import annotations
@@ -26,8 +30,41 @@ import time
 import numpy as np
 import torch
 
+INDEX_COLUMNS = ["ACI", "ADiv", "AEve", "BioA", "H", "Ht", "M", "NDSI", "NDSIAnthro", "NDSIBio", "AR"]
 
-def run(cfg, st_epochs: int = 0, manifest: str | None = None, device: str = "cuda"):
+
+def manifest_source(cfg, manifest: str, lab_csv: str | None, ai_csv: str | None, im_path: str):
+    """The manifest mode's source (JAX ``cli/train_acgan._manifest_source``):
+    the ``specdata.npz`` train split with the columns ``index0`` + the label
+    CSV's header; with ``cfg.use_aind`` and ``ai_csv``, its inner merge with
+    the acoustic-index CSV on (file_name = file_path, begin_time, end_time) in
+    pandas' row order, and each index column z-normalised (ddof 0, float64).
+    Returns (DataFrameImageSource, class names)."""
+    from spectrogramgenai_tpu_torch.data.manifest import (
+        inner_merge,
+        load_specdata_manifest,
+        read_csv_table,
+        zscore_columns,
+    )
+    from spectrogramgenai_tpu_torch.data.pipeline import DataFrameImageSource
+
+    columns = None
+    if lab_csv:
+        columns = ["index0"] + read_csv_table(lab_csv)[0]
+    rows, _test, classes = load_specdata_manifest(manifest, columns)
+    indices_columns = None
+    if cfg.use_aind and ai_csv:
+        indices_columns = INDEX_COLUMNS
+        rows = inner_merge(rows, read_csv_table(ai_csv)[1], ["file_name", "begin_time", "end_time"],
+                           ["file_path", "begin_time", "end_time"])
+        zscore_columns(rows, indices_columns)
+    src = DataFrameImageSource(rows, im_path, classes, indices_columns=indices_columns, seed=cfg.run.seed,
+                               cache_decoded=cfg.data.cache_decoded, cache_budget_mb=cfg.data.cache_budget_mb)
+    return src, classes
+
+
+def run(cfg, st_epochs: int = 0, manifest: str | None = None, device: str = "cuda", lab_csv: str | None = None,
+        ai_csv: str | None = None, im_path: str = "."):
     """Train ``cfg``; returns (task, GANTrainState)."""
     from spectrogramgenai_tpu_torch.audio.export import save_generated_pngs
     from spectrogramgenai_tpu_torch.cli.common import resolve_device, setup
@@ -36,9 +73,6 @@ def run(cfg, st_epochs: int = 0, manifest: str | None = None, device: str = "cud
     from spectrogramgenai_tpu_torch.data.pipeline import ImageFolderSource, device_prefetch, iterate_batches
     from spectrogramgenai_tpu_torch.train.acgan_task import ACGANTask
 
-    if manifest:
-        raise NotImplementedError("the ACGAN's DataFrame/manifest mode (--manifest) is not ported: "
-                                  "ROADMAP queue 1, item 4")
     dev = resolve_device(device)
     setup(cfg.run)
     task = ACGANTask(cfg, dev)
@@ -54,9 +88,12 @@ def run(cfg, st_epochs: int = 0, manifest: str | None = None, device: str = "cud
             task.load_state(state, saved)
             print(f"resumed ACGAN from epoch {st_epochs} (step {state.step})", flush=True)
 
-    src = ImageFolderSource(os.path.join(cfg.data.dataset_path, cfg.data.train_folder), seed=cfg.run.seed,
-                            img_size=cfg.data.img_size, cache_decoded=cfg.data.cache_decoded,
-                            cache_budget_mb=cfg.data.cache_budget_mb)
+    if manifest:
+        src, _classes = manifest_source(cfg, manifest, lab_csv, ai_csv, im_path)
+    else:
+        src = ImageFolderSource(os.path.join(cfg.data.dataset_path, cfg.data.train_folder), seed=cfg.run.seed,
+                                img_size=cfg.data.img_size, cache_decoded=cfg.data.cache_decoded,
+                                cache_budget_mb=cfg.data.cache_budget_mb)
 
     # fixed eval noise, drawn once from the run's seed
     gen = torch.Generator(device=dev).manual_seed(cfg.run.seed)
@@ -105,11 +142,15 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--st_epochs", type=int, default=0)
-    p.add_argument("--manifest", default=None, help="specdata.npz (DataFrame mode; not ported, raises)")
+    p.add_argument("--manifest", default=None, help="specdata.npz (manifest mode)")
+    p.add_argument("--lab_csv", default=None, help="label CSV providing the manifest's columns")
+    p.add_argument("--ai_csv", default=None, help="acoustic-index CSV (with --use_aind true)")
+    p.add_argument("--im_path", default=".", help="spectrogram image folder for manifest mode")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
     add_config_args(p, ACGANConfig)
     a = p.parse_args(argv)
-    return run(apply_overrides(ACGANConfig(), a), a.st_epochs, a.manifest, device=a.device)
+    return run(apply_overrides(ACGANConfig(), a), a.st_epochs, a.manifest, device=a.device, lab_csv=a.lab_csv,
+               ai_csv=a.ai_csv, im_path=a.im_path)
 
 
 if __name__ == "__main__":

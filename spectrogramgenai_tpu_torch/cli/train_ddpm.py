@@ -5,7 +5,10 @@ The latent path reads a port VQ-VAE checkpoint (``{"params": …}`` under
 ``--vqae_ckpt``) and, with ``--cache_latents`` (the default), encodes the
 training set once. Checkpoints go to ``models/<run_name>`` (resumed exactly,
 mid-epoch included), metrics and preview sample grids to
-``<output_dir>/<run_name>``. Runs on CUDA unless ``--device`` says otherwise.
+``<output_dir>/<run_name>``. ``--profile_dir`` traces the whole run with
+``torch.profiler`` into ``<profile_dir>/trace.json`` (a Chrome trace; on the
+card it names the attention kernels). Runs on CUDA unless ``--device`` says
+otherwise.
 
   python -m spectrogramgenai_tpu_torch.cli.train_ddpm --data.dataset_path datasets \\
       --epochs 100 --vqae_ckpt models/vqvae --run.run_name ddpm
@@ -131,12 +134,16 @@ def _log_images(task, run_dir: str, epoch: int, logger, step: int) -> None:
 
 def main(argv=None):
     from spectrogramgenai_tpu_torch.core.config import DDPMConfig, add_config_args, apply_overrides
+    from spectrogramgenai_tpu_torch.utils.profiling import trace
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
+    p.add_argument("--profile_dir", default=None,
+                   help="write a torch.profiler Chrome trace of the run to <profile_dir>/trace.json")
     add_config_args(p, DDPMConfig)
     a = p.parse_args(argv)
-    run(apply_overrides(DDPMConfig(), a), device=a.device)
+    with trace(a.profile_dir):
+        return run(apply_overrides(DDPMConfig(), a), device=a.device)
 
 
 if __name__ == "__main__":

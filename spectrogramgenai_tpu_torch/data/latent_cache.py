@@ -18,11 +18,12 @@ import torch
 
 class LatentCacheSource:
     def __init__(self, source, encode_fn, device: torch.device, encode_batch: int = 64, num_threads: int = 8):
-        """``source``: an ImageFolderSource-like object (``paths``, ``load_batch``,
-        ``epoch_indices``); ``encode_fn``: images (n, H, W, 1) in [0, 1] on
-        ``device`` → latents (``DiffusionTask.make_encoder()``)."""
+        """``source``: an ImageFolderSource (``paths``) or DataFrameImageSource
+        (``rows``), anything with ``load_batch`` and ``epoch_indices``;
+        ``encode_fn``: images (n, H, W, 1) in [0, 1] on ``device`` → latents
+        (``DiffusionTask.make_encoder()``)."""
         self.source = source
-        n = len(source.paths)
+        n = len(source.paths) if hasattr(source, "paths") else len(source.rows)
         chunks, labels = [], np.empty(n, np.int32)
         for start in range(0, n, encode_batch):
             idx = np.arange(start, min(start + encode_batch, n))

@@ -1,26 +1,32 @@
 """Host input pipeline for one device: decode → batch → prefetch onto the card.
 
-Counterpart of the image-folder half of ``spectrogramgenai_tpu/data/pipeline.py``:
+Counterpart of ``spectrogramgenai_tpu/data/pipeline.py``:
 
   * ``ImageFolderSource`` — class-subdirectory PNG tree with optional
     bootstrap class balancing. Its index stream is the JAX source's, element
     for element (``np.random.default_rng(seed)``, the bootstrap, the
     shuffle), and it keeps the bounded decoded-image cache.
+  * ``DataFrameImageSource`` — manifest rows keyed
+    ``{file}_{begin}_{begin}.png`` (the ACGAN's manifest mode), with the
+    optional BirdNET ``embedding`` and acoustic-index ``a_ind`` extras.
   * ``iterate_batches`` — host NumPy batches, with ``skip_batches`` for exact
     mid-epoch resume.
   * ``device_prefetch`` — pinned host memory and a copy on a side CUDA
     stream, overlapped with the step; the consumer's stream waits on an event.
   * ``padded_eval_batches`` — evaluation batches that keep the remainder.
 
-PNGs are decoded by ``audio/export.py``'s NumPy reader in a thread pool
-(``zlib`` releases the GIL). The JAX source's bilinear resize of an image of
-another size (PIL) is not ported: such an image raises. There is no
-multi-host sharding.
+PNGs are decoded a batch at a time by the native decoder
+(``data/native_png.py``, bit-equal to PIL's ``convert("L")``); a row it does
+not read (another size, 16-bit, interlaced, a ``.npy``) goes to
+``audio/export.py``'s NumPy reader and, at another size, PIL's BILINEAR
+resize (``pil_resize``, bit-equal), as the JAX source sends it to PIL. There
+is no multi-host sharding.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import os
 import queue
 import threading
 import warnings
@@ -29,23 +35,40 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from spectrogramgenai_tpu_torch.audio.export import image_hw, load_image_grayscale
+from spectrogramgenai_tpu_torch.audio.export import image_hw, load_image_grayscale, pil_resize, spec_png_name
 from spectrogramgenai_tpu_torch.data.manifest import bootstrap_balance_indices, scan_image_folder
+from spectrogramgenai_tpu_torch.data.native_png import load_png_batch_gray
 
 
 def decode_gray_batch(paths: list[str], height: int, width: int, num_threads: int = 8) -> np.ndarray:
-    """Grayscale decode of ``paths`` → float32 (n, height, width) in [0, 1]."""
-    out = np.zeros((len(paths), height, width), np.float32)
+    """Grayscale decode of ``paths`` → float32 (n, height, width) in [0, 1].
+
+    The PNGs go to the native decoder in one call; the rows it hands back
+    (and non-PNG files) are read by the NumPy reader, resized with PIL's
+    BILINEAR filter if they are of another size, as the JAX function does."""
+    n = len(paths)
+    out = np.zeros((n, height, width), np.float32)
+    done = np.zeros(n, bool)
+    png_rows = [i for i, p in enumerate(paths) if p.endswith(".png")]
+    if png_rows:
+        raw, ok = load_png_batch_gray([paths[i] for i in png_rows], height, width, num_threads=num_threads)
+        rows = np.asarray(png_rows)[ok]
+        out[rows] = raw[ok].astype(np.float32) / 255.0
+        done[rows] = True
 
     def one(i: int) -> None:
         img = load_image_grayscale(paths[i])
-        if img.shape != (height, width):
-            raise ValueError(f"{paths[i]}: image is {img.shape[0]}×{img.shape[1]}, expected "
-                             f"{height}×{width} (resizing is not ported)")
+        if img.shape != (height, width):  # the JAX function's round trip through uint8 and PIL
+            img = pil_resize((img * 255).astype(np.uint8), (width, height), kind="bilinear").astype(np.float32) / 255.0
         out[i] = img
 
-    with cf.ThreadPoolExecutor(max_workers=max(1, num_threads)) as pool:
-        list(pool.map(one, range(len(paths))))
+    rest = np.flatnonzero(~done)
+    if len(rest) > 1 and num_threads > 1:
+        with cf.ThreadPoolExecutor(max_workers=num_threads) as pool:
+            list(pool.map(one, rest))
+    else:
+        for i in rest:
+            one(i)
     return out
 
 
@@ -124,6 +147,57 @@ class ImageFolderSource(_DecodedCache):
         imgs = self._cache_fetch(len(self.paths), chunk, h, w,
                                  lambda idx: decode_gray_batch([self.paths[i] for i in idx], h, w, num_threads))
         return {"image": imgs[..., None], "label": self.labels[chunk].astype(np.int32)}
+
+
+class DataFrameImageSource(_DecodedCache):
+    """Manifest rows (dicts with ``file_name``, ``begin_time``,
+    ``common_name``) as a source: a row's image is ``file_name`` if that
+    file exists, else ``{root_dir}/{file}_{begin}_{begin}.png``; its label
+    the index of ``common_name`` in ``class_names``. Extras: ``embedding``
+    from a comma-separated ``embeddings`` text, ``a_ind`` from
+    ``indices_columns`` (float32). Images are decoded at the size of the
+    first one decoded. The index stream and batches are the JAX source's."""
+
+    def __init__(self, rows: list[dict], root_dir: str, class_names: list[str],
+                 indices_columns: list[str] | None = None, seed: int = 0,
+                 cache_decoded: bool = False, cache_budget_mb: int = 8192):
+        self.rows = list(rows)
+        self.root_dir = root_dir
+        self.class_names = list(class_names)
+        self.indices_columns = indices_columns
+        self.rng = np.random.default_rng(seed)
+        self._probed_hw: tuple[int, int] | None = None
+        self._cache_init(cache_decoded, cache_budget_mb)
+
+    def epoch_indices(self) -> np.ndarray:
+        idx = np.arange(len(self.rows))
+        self.rng.shuffle(idx)
+        return idx
+
+    def _path(self, row: dict) -> str:
+        path = row["file_name"]
+        if not os.path.exists(path):
+            path = os.path.join(self.root_dir, spec_png_name(row["file_name"], row["begin_time"]))
+        return path
+
+    def _sample(self, row: dict, image: np.ndarray) -> dict:
+        out = {"image": image[..., None], "label": np.int32(self.class_names.index(row["common_name"]))}
+        if isinstance(row.get("embeddings"), str):
+            out["embedding"] = np.asarray([float(v) for v in row["embeddings"].split(",")], np.float32)
+        if self.indices_columns:
+            out["a_ind"] = np.asarray([float(row[c]) for c in self.indices_columns], np.float32)
+        return out
+
+    def load_batch(self, chunk: np.ndarray, num_threads: int = 8) -> dict:
+        """A batch of the rows in ``chunk``: image (n, H, W, 1) float32, label (n,) int32, and the extras."""
+        rows = [self.rows[int(i)] for i in chunk]
+        if self._probed_hw is None:
+            self._probed_hw = image_hw(self._path(rows[0]))
+        h, w = self._probed_hw
+        imgs = self._cache_fetch(len(self.rows), chunk, h, w, lambda idx: decode_gray_batch(
+            [self._path(self.rows[int(i)]) for i in idx], h, w, num_threads))
+        samples = [self._sample(row, img) for row, img in zip(rows, imgs)]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
 def iterate_batches(source, batch_size: int, *, drop_remainder: bool = True, num_threads: int = 8,

@@ -118,11 +118,14 @@ def _initial_noise(labels: torch.Tensor, sample_shape: tuple[int, ...],
 def ddpm_sample(model_fn: ModelFn, schedule: DiffusionSchedule, labels: torch.Tensor,
                 sample_shape: tuple[int, ...], cfg_scale: float = 3.0, *,
                 generator: torch.Generator | None = None, x_T: torch.Tensor | None = None,
-                noise: torch.Tensor | None = None) -> torch.Tensor:
+                noise: torch.Tensor | None = None,
+                callback: Callable[[int, torch.Tensor], None] | None = None) -> torch.Tensor:
     """Ancestral reverse chain over i = noise_steps-1 … 1.
 
     ``noise`` (optional) holds the per-step noise, (noise_steps-1, n,
     *sample_shape), in chain order; the last step (i = 1) adds none.
+    ``callback(i, x)`` (optional) sees each step's output x_{i-1} (the
+    trajectory dump of ``cli/generate.py``).
     """
     x = _initial_noise(labels, sample_shape, generator, x_T)
     steps = range(schedule.noise_steps - 1, 0, -1)
@@ -137,6 +140,8 @@ def ddpm_sample(model_fn: ModelFn, schedule: DiffusionSchedule, labels: torch.Te
             z = noise[pos].to(x) if noise is not None else torch.randn(
                 x.shape, generator=generator, device=x.device)
             x = x + float(np.sqrt(beta)) * z
+        if callback is not None:
+            callback(i, x)
     return x
 
 

@@ -7,8 +7,11 @@
     thread drains up to ``batch_size`` slots, waiting at most
     ``max_delay_ms`` once the first slot arrives.
   * Results fan back out to per-request futures; ``GenerationHTTPServer``
-    serves them as base64 viridis PNGs, and with ``"audio": true`` also as
-    base64 WAVs inverted on the task's device (``audio/invert.py``).
+    serves them as base64 viridis PNGs, a request's images encoded in one
+    call to the native batch encoder (``data/native_png.py``, as the JAX
+    server's ``encode_png_batch_rgb``; ``/stats``' ``encode_seconds`` sums
+    those calls), and with ``"audio": true`` also as base64 WAVs inverted on
+    the task's device (``audio/invert.py``).
 """
 
 from __future__ import annotations

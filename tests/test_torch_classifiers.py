@@ -387,8 +387,8 @@ def test_sweep_and_eval_clis_run(tmp_path, monkeypatch, capsys):
     rows = eval_classifiers.main(["--test_dir", "datasets/val", "--out_dir", "eval", "--models", "custom,resnet",
                                   "--synths", "0,2", *common])
     assert len(rows) == 4 and sorted(os.listdir("eval")) == sorted(
-        ["eval_results.csv"] + [f"{m}_synth{s}_classification_report.csv" for m in ("custom", "resnet")
-                                for s in (0, 2)])
+        ["eval_results.csv"] + [f"{m}_synth{s}_{kind}" for m in ("custom", "resnet") for s in (0, 2)
+                                for kind in ("classification_report.csv", "confusion_matrix.png")])
     # the best checkpoint, evaluated again, gives the validation accuracy it was kept for
     for row in rows:
         assert row["val_accuracy"] == pytest.approx(results[(row["model"], row["synth"])], abs=1e-12)

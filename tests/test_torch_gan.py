@@ -482,5 +482,6 @@ def test_train_acgan_cli_runs_and_resumes(tmp_path, monkeypatch, capsys):
     task2, state2 = tcli.main(["--epochs", "12", "--st_epochs", "14", *common])  # rounds down to 10
     assert "resumed ACGAN from epoch 10 (step 10)" in capsys.readouterr().out
     assert state2.step == 11 and CheckpointManager("models/acgan").all_steps() == [10, 11]
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    # manifest mode reads its specdata.npz (tests/test_torch_data_leftovers.py trains from one)
+    with pytest.raises(FileNotFoundError, match="specdata.npz"):
         tcli.main(["--manifest", "specdata.npz", *common])
