@@ -42,6 +42,20 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 27 WAVs at 22,050 Hz of 97,920 samples, peak-normalised, and
                 /stats' audio_seconds for that batch of 27. One served batch's
                 device time by kernel (torch.profiler).
+ 5a. export   — from the serve phase's checkpoints: cli.export_model.run
+                writes a dpmpp-20 artifact at 27 labels (torch.export programs
+                of the UNet's ε forward and the VQ decode in a zip) and checks
+                it (--check); the artifact loaded here against eager
+                task.sample with the same seed (max uint8 difference within
+                EXPORT_U8_TOL), K1 launched 60 times a batch through the
+                operator spectrogramgenai_tpu_torch::attention_fwd, all on the
+                tensor-core route, attention_fwd_mma in a batch's profile;
+                images/s artifact against eager (alternating batches, host
+                clock); python -m ...cli.generate --artifact in a fresh
+                process (27 PNGs named by class); cli.serve.run(artifact=…)
+                answering POST /generate and /stats; then a ddpm artifact's
+                999-step chain (2,997 launches), its wall printed beside the
+                trajectory phase's eager chain. Export seconds and MB.
  5b. invert   — audio/invert.db_mel_to_audio at full width (256 mels × 256
                 frames, n_fft 2048, hop 384) on 27 tone-plus-noise clips: the
                 card's float32 chain against the same function in float64 on
@@ -243,6 +257,10 @@ DENOISER_TOL = 1e-4
 # the evaluators: InceptionV3's and the CLAP tower's float32 outputs card (TF32 off) against CPU,
 # relative L2; the CLAP-FAD of a directory against itself (scipy's sqrtm of a rank-deficient product)
 TOWER_TOL, EVAL_SELF_FAD_TOL = 1e-4, 1e-3
+# the exported sampler against eager sampling (the same kernels in the same order: bit-equal,
+# a reading of 0 on an NVIDIA H100): the chain's latents, max abs; the images, max uint8
+EXPORT_LATENT_TOL, EXPORT_U8_TOL = 0.0, 0
+EXPORT_TIMED_BATCHES = 5
 MEL_RUNGS = ((True, "exact", "spectrogramgenai_tpu/ops/mel_kernel.py:94"),
              ("high", "high", "spectrogramgenai_tpu/ops/mel_kernel.py:147"),
              (False, "fast", "spectrogramgenai_tpu/ops/mel_kernel.py:94"))
@@ -871,6 +889,171 @@ def phase_serve(torch, work: str) -> int:
     check_fwd_route_in_profile(what, log_profile(torch, what, lambda: batcher.task.sample(
         labels, generator=gen_s, sampler="dpmpp", num_steps=NUM_STEPS)))
     return launches
+
+
+def phase_export(torch, work: str) -> tuple[int, float]:
+    """cli.export_model from the serve phase's checkpoints (in ``work``):
+    dpmpp-20 at 27 labels, held to eager sampling, K1's launches and kernel
+    names, images/s against eager, cli.generate --artifact in a fresh
+    process, cli.serve --artifact over HTTP; then the 999-step ddpm chain.
+    Returns K1's launches on the main path and the ddpm chain's wall."""
+    from spectrogramgenai_tpu_torch.cli import export_model, serve
+    from spectrogramgenai_tpu_torch.cli.common import load_task
+    from spectrogramgenai_tpu_torch.core.config import DDPMConfig, RunConfig
+    from spectrogramgenai_tpu_torch.ops.attention import fused_attention
+    from spectrogramgenai_tpu_torch.serving.export import load_artifact
+
+    os.chdir(work)
+    cfg = DDPMConfig(run=RunConfig(run_name="smoke_ddpm", seed=0), vqae_ckpt="models/smoke_vq")
+    labels = np.arange(SERVE_BATCH) % cfg.num_classes
+    sites = len(SA_SITES)
+
+    def exported(sampler: str, num_steps: int, check_it: bool) -> str:
+        out = f"models/smoke_sampler_{sampler}.zip"
+        t0 = time.perf_counter()
+        _, printed = run_quiet(export_model.run, cfg, out=out, num_labels=SERVE_BATCH, sampler=sampler,
+                               num_steps=num_steps, check=check_it, device="cuda")
+        wall = time.perf_counter() - t0
+        for line in printed.splitlines():
+            log(f"export: {line}")
+        took = re.search(r"\(([\d.]+) MB\) in ([\d.]+) s", printed)
+        check(took is not None, "cli.export_model prints the artifact's size and the export's seconds")
+        log(f"export: {sampler}-{num_steps} at {SERVE_BATCH} labels: export {took.group(2)} s, artifact "
+            f"{os.path.getsize(out) / 1e6:.1f} MB; cli.export_model.run {wall:.2f} s wall (load, export"
+            + (", reload and one batch)" if check_it else ")"))
+        if check_it:
+            check(f"check: artifact generated ({SERVE_BATCH}, {cfg.img_size}, {cfg.img_size}, 1) uint8" in printed,
+                  "--check generated one batch")
+        return out
+
+    path = exported("dpmpp", NUM_STEPS, True)
+    t0 = time.perf_counter()
+    art = load_artifact(path)
+    log(f"export: load_artifact {time.perf_counter() - t0:.2f} s (device {art.device})")
+    task = load_task(cfg, torch.device("cuda"))
+
+    def eager(seed: int) -> np.ndarray:
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        return task.sample(labels, generator=gen, sampler="dpmpp", num_steps=NUM_STEPS).cpu().numpy()
+
+    fused_attention.launches = fused_attention.mma_launches = 0  # the main path starts here
+    lat = art.sample_latents(3, labels)
+    got = art.decode(lat).cpu().numpy()
+    check((fused_attention.launches, fused_attention.mma_launches) == (sites * NUM_STEPS, sites * NUM_STEPS),
+          f"one artifact batch launched K1 {fused_attention.launches} times, {fused_attention.mma_launches} on "
+          f"the tensor-core route ({sites} sites × {NUM_STEPS} steps = {sites * NUM_STEPS})")
+    want_lat = task.sample_latents(labels, generator=torch.Generator(device="cuda").manual_seed(3),
+                                   sampler="dpmpp", num_steps=NUM_STEPS)
+    want = task.decode(want_lat).cpu().numpy()
+    lat_err = (lat - want_lat).abs().max().item()
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    # the random VQ-VAE decodes every latent to ~127 (its output is within ±0.002),
+    # so the latents carry the comparison and the images only their shape
+    log(f"export: artifact vs eager, seed 3, dpmpp-{NUM_STEPS} at {SERVE_BATCH} labels: latents max abs difference "
+        f"{lat_err:.3g} (tolerance {EXPORT_LATENT_TOL}; latents std {lat.std().item():.4g}, max |x| "
+        f"{lat.abs().max().item():.4g}), uint8 images max difference {int(diff.max())} (tolerance "
+        f"{EXPORT_U8_TOL}), {len(np.unique(got))} distinct levels")
+    check(bool(torch.isfinite(lat).all()) and lat.std().item() > 0, "the artifact's latents finite and not constant")
+    check(got.shape == (SERVE_BATCH, cfg.img_size, cfg.img_size, 1) and got.dtype == np.uint8,
+          f"artifact images {got.shape} {got.dtype}")
+    check(lat_err <= EXPORT_LATENT_TOL and int(diff.max()) <= EXPORT_U8_TOL,
+          f"artifact vs eager: latents {lat_err} <= {EXPORT_LATENT_TOL}, uint8 {int(diff.max())} <= {EXPORT_U8_TOL}")
+    what = f"export: one artifact batch (dpmpp-{NUM_STEPS}, {SERVE_BATCH} labels)"
+    check_fwd_route_in_profile(what, log_profile(torch, what, lambda: art(4, labels)))
+
+    # images/s, artifact against eager, alternating (host clock; each call ends in a copy to the host)
+    times = {"artifact": [], "eager": []}
+    for i in range(EXPORT_TIMED_BATCHES):
+        for name, fn in (("artifact", art), ("eager", lambda s, _: eager(s))):
+            t = time.perf_counter()
+            fn(10 + i, labels)
+            times[name].append(time.perf_counter() - t)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    log(f"export: dpmpp-{NUM_STEPS} at batch {SERVE_BATCH}, median of {EXPORT_TIMED_BATCHES} alternating batches: "
+        f"artifact {med['artifact']:.4f} s ({SERVE_BATCH / med['artifact']:.2f} images/s), eager "
+        f"{med['eager']:.4f} s ({SERVE_BATCH / med['eager']:.2f} images/s); artifact / eager "
+        f"{med['artifact'] / med['eager']:.3f}")
+    del task
+
+    # cli.generate --artifact in a fresh process on the card
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "spectrogramgenai_tpu_torch.cli.generate", "--artifact", path,
+                           "--img_folder", "gen_artifact", "--num_samples", "1"], cwd=work, capture_output=True,
+                          text=True, timeout=600, env={**os.environ, "PYTHONPATH": REPO})
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"cli.generate --artifact exited {proc.returncode}: {proc.stderr[-2000:]}")
+    names = sorted(os.listdir("gen_artifact"))
+    want_names = sorted(f"class{i:02d}_gen_imgs_{i}_0.png" for i in range(cfg.num_classes))
+    check(names == want_names, f"cli.generate --artifact wrote {len(names)} PNGs named by class ({len(want_names)})")
+    with open(f"gen_artifact/{names[0]}", "rb") as f:
+        check(png_rgb(f.read()).shape == (cfg.img_size, cfg.img_size, 3), "a generated PNG of the image size")
+    log(f"export: python -m spectrogramgenai_tpu_torch.cli.generate --artifact in a fresh process: "
+        f"{len(names)} PNGs in {wall:.2f} s wall (process start, load, one batch, PNG writes)")
+
+    # cli.serve --artifact: no checkpoint, no model code
+    before = fused_attention.launches
+    server, batcher = serve.run(DDPMConfig(), port=0, class_names=[f"class{i:02d}" for i in range(cfg.num_classes)],
+                                block=False, device="cuda", artifact=path)
+    results: dict[int, tuple[int, dict]] = {}
+    requests = REQUESTS[:3]
+    try:
+        base = f"http://127.0.0.1:{server.port}"
+
+        def post(i, payload):
+            req = urllib.request.Request(f"{base}/generate", data=json.dumps(payload).encode(), method="POST")
+            with urllib.request.urlopen(req, timeout=600) as r:
+                results[i] = (r.status, json.loads(r.read()))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i, p)) for i, p in enumerate(requests)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t0
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.shutdown()
+        batcher.close()
+    for i, p in enumerate(requests):
+        status, body = results[i]
+        check(status == 200 and len(body["images"]) == p["count"], f"artifact-served request {p} → {status}, "
+                                                                    f"{len(body['images'])} images")
+        check(png_rgb(base64.b64decode(body["images"][0])).shape == (cfg.img_size, cfg.img_size, 3),
+              "a served PNG of the image size")
+    n_images = sum(p["count"] for p in requests)
+    served_launches = fused_attention.launches - before
+    check(served_launches == sites * NUM_STEPS * stats["batches"],
+          f"artifact serving: K1 launches {served_launches} = {sites} × {NUM_STEPS} × {stats['batches']} batches")
+    log(f"export: cli.serve.run(artifact=…): {n_images} images in {len(requests)} requests, {stats['batches']} "
+        f"batches with the warmup, {wall:.3f} s wall; stats {json.dumps(stats)}")
+
+    # the 999-step ddpm chain from an artifact
+    path = exported("ddpm", 50, False)
+    art = load_artifact(path)
+    before = fused_attention.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = art.sample_latents(0, labels)
+    imgs = art.decode(lat).cpu().numpy()
+    chain_s = time.perf_counter() - t0
+    steps = cfg.noise_steps - 1
+    chain_launches = fused_attention.launches - before
+    launches, mma_launches = fused_attention.launches, fused_attention.mma_launches  # the main path ends here
+    check(chain_launches == sites * steps, f"the ddpm artifact's chain launched K1 {chain_launches} times "
+                                           f"({sites} sites × {steps} steps)")
+    check(imgs.shape == (SERVE_BATCH, cfg.img_size, cfg.img_size, 1) and bool(torch.isfinite(lat).all()),
+          "the ddpm artifact's images, and its latents finite")
+    check(mma_launches == launches, f"every K1 launch of the phase on the tensor-core route ({mma_launches} of "
+                                    f"{launches})")
+    log(f"export: the ddpm artifact's {steps}-step chain with CFG at {SERVE_BATCH} labels (UNet batch "
+        f"{2 * SERVE_BATCH}) and its decode: {chain_s:.2f} s wall ({1e3 * chain_s / steps:.2f} ms a step), K1 "
+        f"launches {chain_launches}")
+    log(f"export: K1 launches in the phase {launches}, all on the tensor-core route")
+    del art
+    torch.cuda.empty_cache()
+    return launches, chain_s
 
 
 def tone_clips(n: int, cfg, seed: int = 5) -> np.ndarray:
@@ -2124,10 +2307,11 @@ def train_step_checks(torch, cfg, s_per_step: float) -> None:
     del batches
 
 
-def phase_trajectory(torch, ddpm_cfg) -> int:
+def phase_trajectory(torch, ddpm_cfg) -> tuple[int, float]:
     """cli.generate --sav_denoise_path from the trained DDPM: the 999-step
     chain with CFG over the 27 labels, its latent grids and VQ decodes at 21
-    steps. Returns the forward attention kernel's launches (the main path)."""
+    steps. Returns the forward attention kernel's launches (the main path)
+    and the chain's wall less the dumps."""
     from spectrogramgenai_tpu_torch.audio import export
     from spectrogramgenai_tpu_torch.cli import generate
     from spectrogramgenai_tpu_torch.data.manifest import class_names_from_folder
@@ -2185,7 +2369,7 @@ def phase_trajectory(torch, ddpm_cfg) -> int:
         + f"; the chain alone {wall - sum(dump_s.values()):.2f} s "
         f"({1e3 * (wall - sum(dump_s.values())) / steps:.2f} ms a step); K1 launches {launches}, all on the "
         f"tensor-core route")
-    return launches
+    return launches, wall - sum(dump_s.values())
 
 
 def phase_profile_dir(torch, ddpm_cfg) -> None:
@@ -2338,7 +2522,7 @@ def main() -> int:
     log(f"device: {torch.cuda.get_device_name(0)} (count {torch.cuda.device_count()}), torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
 
-    t0 = time.perf_counter()
+    t_smoke = t0 = time.perf_counter()
     _build.build(KERNEL_SOURCES + HOST_SOURCES)  # one nvcc (g++ for the host codecs) per source, started together
     log(f"build: {', '.join(KERNEL_SOURCES + HOST_SOURCES)} built and loaded in {time.perf_counter() - t0:.2f} s")
     for name in KERNEL_SOURCES:
@@ -2356,6 +2540,7 @@ def main() -> int:
     mel = timed("mel", phase_mel, torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         launches = timed("serve", phase_serve, torch, work)
+        export_launches, export_chain_s = timed("export", phase_export, torch, work)
         os.chdir(REPO)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_invert_") as work:
         timed("invert", phase_invert, torch, work)
@@ -2366,7 +2551,10 @@ def main() -> int:
         timed("datasets", make_train_datasets, work)
         vqae_ckpt = timed("train_vqvae", phase_train_vqvae, torch)
         train_launches, ddpm_cfg = timed("train", phase_train, torch, vqae_ckpt)
-        traj_launches = timed("trajectory", phase_trajectory, torch, ddpm_cfg)
+        traj_launches, traj_chain_s = timed("trajectory", phase_trajectory, torch, ddpm_cfg)
+        log(f"export: the 999-step chain from the ddpm artifact {export_chain_s:.2f} s (random weights, with its "
+            f"decode) beside the eager chain of the trajectory phase {traj_chain_s:.2f} s (trained weights, "
+            f"less its dumps)")
         timed("profile_dir", phase_profile_dir, torch, ddpm_cfg)
         timed("classifiers", phase_classifiers, torch, ddpm_cfg)
         timed("fid", phase_fid, torch)
@@ -2380,7 +2568,7 @@ def main() -> int:
     kernels = [{"name": "attention_fwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": "spectrogramgenai_tpu/ops/attention.py:83",
-                "launches": launches + train_launches[0] + traj_launches,
+                "launches": launches + export_launches + train_launches[0] + traj_launches,
                 **kern},
                {"name": "attention_bwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_bwd.cu",
@@ -2390,6 +2578,7 @@ def main() -> int:
                         "source": "spectrogramgenai_tpu_torch/csrc/mel_power.cu", "replaces": replaces,
                         "launches": mel_launches[rung] + (specunet_launches + eval_launches if rung == "exact" else 0),
                         **mel[rung]})
+    log(f"smoke: {time.perf_counter() - t_smoke:.1f} s wall from the build to the kernels line")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

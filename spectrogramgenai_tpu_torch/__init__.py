@@ -12,10 +12,14 @@ the SpecUNet denoiser/separator (train_acgan, train_specunet), and the
 evaluators: InceptionV3 IS and FID (inception_score, fid), the CLAP audio
 tower and FAD (fad), verify_metrics, with converted flax weights read by
 core/flax_msgpack; the ACGAN's manifest mode, the trajectory dump
-(generate --sav_denoise_path), train_ddpm --profile_dir and utils/misc. The
-self-attention forward and backward and the mel power spectrogram run in
-hand-written CUDA kernels (``csrc/*.cu``) on the card; on a CPU tensor each
-wrapper computes its plain PyTorch version. The host's WAV decoder and PNG
+(generate --sav_denoise_path), train_ddpm --profile_dir and utils/misc; and
+sampler export (export_model, generate --artifact, serve --artifact:
+``torch.export`` programs in a zip, serving/export.py). The self-attention
+forward and backward and the mel power spectrogram run in hand-written CUDA
+kernels (``csrc/*.cu``) on the card; on a CPU tensor each wrapper computes
+its plain PyTorch version. The attention forward is also the ``torch.library``
+operator ``spectrogramgenai_tpu_torch::attention_fwd``, which exported
+programs call. The host's WAV decoder and PNG
 codec are C++ thread pools (``csrc/*.cpp``, built with g++ at first use).
 Imports torch, never JAX.
 """

@@ -9,9 +9,14 @@ reference's denoising trajectory: the 999-step DDPM chain (with CFG) over one
 label per class, and at steps 999, every multiple of 50 and 1 the 2×2 grid of
 the 4 latent channels and the VQ decode of each sample,
 ``{class}_noise_{i}_latent.png`` and ``{class}_noise_{i}_decode.png``.
+``--artifact PATH`` generates from an exported sampler (cli.export_model)
+instead of a checkpoint: no config and no model code, the artifact's sampler,
+steps and CFG scale; its label batch must be k·num_classes.
 
   python -m spectrogramgenai_tpu_torch.cli.generate --run.run_name ddpm \\
       --img_folder gen_images --num_samples 10 --start_idx 0 [--audio_dir gen_audio]
+  python -m spectrogramgenai_tpu_torch.cli.generate --artifact models/ddpm_sampler.zip \\
+      --train_folder_for_classes datasets/train --num_samples 10
 """
 
 from __future__ import annotations
@@ -26,10 +31,12 @@ import torch
 def run(cfg, img_folder: str, num_samples: int, start_idx: int, class_names: list[str],
         use_ema: bool = False, sampler: str = "ddpm", num_steps: int = 50,
         device: str = "cuda", audio_dir: str | None = None, audio_out_sr: int | None = None,
-        sav_denoise_path: str | None = None):
-    from spectrogramgenai_tpu_torch.audio.export import save_generated_pngs
+        sav_denoise_path: str | None = None, artifact: str | None = None):
     from spectrogramgenai_tpu_torch.cli.common import load_task, resolve_device
 
+    if artifact:
+        return _run_from_artifact(artifact, img_folder, num_samples, start_idx, class_names,
+                                  device=device, audio_dir=audio_dir, audio_out_sr=audio_out_sr)
     task = load_task(cfg, resolve_device(device), use_ema=use_ema)
     os.makedirs(img_folder, exist_ok=True)
     labels = torch.arange(cfg.num_classes)
@@ -40,23 +47,55 @@ def run(cfg, img_folder: str, num_samples: int, start_idx: int, class_names: lis
         print("not saving images, just noise portions")  # the reference's message
         return
 
-    # k rounds per chain: one reverse chain over k·num_classes labels
-    rounds_per_chain = max(1, min(cfg.rounds_per_chain, num_samples))
+    def sample(seed: int, k: int) -> np.ndarray:  # k rounds: one reverse chain over k·num_classes labels
+        generator = torch.Generator(device=task.device).manual_seed(seed)
+        return task.sample(labels.repeat(k), generator=generator, sampler=sampler,
+                           num_steps=num_steps).cpu().numpy()
+
+    _write_rounds(sample, max(1, min(cfg.rounds_per_chain, num_samples)), img_folder, num_samples, start_idx,
+                  [class_names[lab] for lab in labels.tolist()], audio_dir, audio_out_sr, task.device)
+
+
+def _run_from_artifact(artifact_path: str, img_folder: str, num_samples: int, start_idx: int,
+                       class_names: list[str], device: str = "cuda", audio_dir: str | None = None,
+                       audio_out_sr: int | None = None):
+    """Generate from an exported sampler: no checkpoint, config or model code;
+    the artifact froze the sampler, steps and CFG scale. Its label batch must
+    be k·num_classes, so that the naming contract holds."""
+    from spectrogramgenai_tpu_torch.cli.common import resolve_device
+    from spectrogramgenai_tpu_torch.serving.export import load_artifact
+
+    art = load_artifact(artifact_path, device=resolve_device(device))
+    ncls = art.manifest["num_classes"]
+    if len(class_names) != ncls:
+        raise ValueError(f"artifact has {ncls} classes, got {len(class_names)} names")
+    if art.num_labels % ncls:
+        raise ValueError(f"artifact label batch {art.num_labels} is not a multiple of num_classes {ncls}")
+    labels = np.tile(np.arange(ncls), art.num_labels // ncls)
+    os.makedirs(img_folder, exist_ok=True)
+    _write_rounds(lambda seed, k: art(seed, labels)[: k * ncls], art.num_labels // ncls, img_folder,
+                  num_samples, start_idx, class_names, audio_dir, audio_out_sr, art.device)
+
+
+def _write_rounds(sample, rounds_per_chain: int, img_folder: str, num_samples: int, start_idx: int,
+                  class_names: list[str], audio_dir: str | None, audio_out_sr: int | None,
+                  device: torch.device) -> None:
+    """Write ``num_samples`` rounds of one image per class, named
+    ``{class}_gen_imgs_{i}_{samp}.png``; ``sample(seed, k)`` gives k rounds
+    as (k·num_classes, H, W, 1) uint8 from one chain seeded with ``seed``
+    (the round's index)."""
+    from spectrogramgenai_tpu_torch.audio.export import save_generated_pngs
+
     samp_i = start_idx
     remaining = num_samples
     while remaining > 0:
         k = min(rounds_per_chain, remaining)
-        generator = torch.Generator(device=task.device).manual_seed(samp_i)
-        imgs = task.sample(labels.repeat(k), generator=generator, sampler=sampler,
-                           num_steps=num_steps).cpu().numpy()
-        out_paths = [
-            os.path.join(img_folder, f"{class_names[lab]}_gen_imgs_{i}_{samp_i + r}.png")
-            for r in range(k)
-            for i, lab in enumerate(labels.tolist())
-        ]
+        imgs = sample(samp_i, k)
+        out_paths = [os.path.join(img_folder, f"{name}_gen_imgs_{i}_{samp_i + r}.png")
+                     for r in range(k) for i, name in enumerate(class_names)]
         save_generated_pngs(imgs, out_paths)
         if audio_dir:
-            _write_audio(imgs, out_paths, audio_dir, audio_out_sr, device=task.device)
+            _write_audio(imgs, out_paths, audio_dir, audio_out_sr, device=device)
         print(f"sample rounds {samp_i}..{samp_i + k - 1}: wrote {len(out_paths)} images")
         samp_i += k
         remaining -= k
@@ -135,6 +174,8 @@ def main(argv=None):
                    help="ddpm = reference-parity 999-step chain; ddim = fast 1st-order "
                         "sampler; dpmpp = DPM-Solver++(2M), 2nd-order (~20 steps)")
     p.add_argument("--num_steps", type=int, default=50, help="DDIM/DPM-Solver++ steps")
+    p.add_argument("--artifact", default=None,
+                   help="generate from an exported sampler (cli.export_model) instead of a checkpoint")
     p.add_argument("--train_folder_for_classes", default=None,
                    help="derive class names from this folder's subdirs")
     p.add_argument("--audio_dir", default=None,
@@ -156,7 +197,7 @@ def main(argv=None):
 
     run(cfg, a.img_folder, a.num_samples, a.start_idx, class_names, bool(a.use_ema),
         a.sampler, a.num_steps, device=a.device, audio_dir=a.audio_dir, audio_out_sr=a.audio_out_sr,
-        sav_denoise_path=a.sav_denoise_path)
+        sav_denoise_path=a.sav_denoise_path, artifact=a.artifact)
 
 
 if __name__ == "__main__":

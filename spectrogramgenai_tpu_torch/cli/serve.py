@@ -10,7 +10,9 @@ POST /generate requests coalesce into fixed-shape reverse-diffusion chains
 
 Default sampler is DPM-Solver++(2M) at 20 steps; pass --sampler ddim
 --num_steps 50 (or ddpm for the 999-step chain) to override. Runs on CUDA
-unless --device says otherwise.
+unless --device says otherwise. ``--artifact models/ddpm_sampler.zip``
+serves an exported sampler (cli.export_model) instead: no checkpoint and no
+model code; the artifact fixes the batch, sampler, steps and CFG scale.
 
   curl -X POST localhost:8000/generate -d '{"label": "bird_a", "count": 2}'
   curl -X POST localhost:8000/generate -d '{"label": 0, "audio": true}'  # base64 WAVs too
@@ -26,15 +28,24 @@ def run(cfg, *, port: int, host: str = "127.0.0.1", serve_batch: int = 27,
         max_delay_ms: float = 50.0, sampler: str = "dpmpp", num_steps: int = 20,
         use_ema: bool = False, class_names: list[str] | None = None, warmup: bool = True,
         block: bool = True, device: str = "cuda", audio_out_sr: int | None = None, audio_gl_iters: int = 32,
-        warm_audio: bool = False):
+        warm_audio: bool = False, artifact: str | None = None):
     from spectrogramgenai_tpu_torch.audio.invert import AudioReconstructor
-    from spectrogramgenai_tpu_torch.cli.common import load_task, resolve_device
+    from spectrogramgenai_tpu_torch.cli.common import resolve_device
     from spectrogramgenai_tpu_torch.serving import BatchingSampler, GenerationHTTPServer
 
-    task = load_task(cfg, resolve_device(device), use_ema=use_ema)
-    batcher = BatchingSampler(task, batch_size=serve_batch, max_delay_ms=max_delay_ms,
-                              sampler=sampler, num_steps=num_steps, seed=cfg.run.seed)
-    audio_rec = AudioReconstructor(gl_iters=audio_gl_iters, out_sr=audio_out_sr, device=task.device)
+    if artifact:  # an exported sampler: no checkpoint, no model code
+        from spectrogramgenai_tpu_torch.serving.export import load_artifact
+
+        art = load_artifact(artifact, device=resolve_device(device))
+        batcher = BatchingSampler.from_artifact(art, max_delay_ms=max_delay_ms, seed=cfg.run.seed)
+        serve_batch, sampler = art.num_labels, art.manifest["sampler"]
+    else:
+        from spectrogramgenai_tpu_torch.cli.common import load_task
+
+        task = load_task(cfg, resolve_device(device), use_ema=use_ema)
+        batcher = BatchingSampler(task, batch_size=serve_batch, max_delay_ms=max_delay_ms,
+                                  sampler=sampler, num_steps=num_steps, seed=cfg.run.seed)
+    audio_rec = AudioReconstructor(gl_iters=audio_gl_iters, out_sr=audio_out_sr, device=batcher.device)
     if warmup:
         # one chain before accepting traffic: builds the kernels, warms the allocator
         print(f"serve: warming up ({sampler}, batch {serve_batch})…", flush=True)
@@ -46,7 +57,7 @@ def run(cfg, *, port: int, host: str = "127.0.0.1", serve_batch: int = 27,
 
     server = GenerationHTTPServer(batcher, class_names, host=host, port=port, audio=audio_rec)
     print(f"serve: listening on {host}:{server.port} "
-          f"(batch {serve_batch}, window {max_delay_ms}ms, {sampler}, {task.device})", flush=True)
+          f"(batch {serve_batch}, window {max_delay_ms}ms, {sampler}, {batcher.device})", flush=True)
     if block:
         try:
             server.serve_forever()
@@ -75,6 +86,9 @@ def main(argv=None):
     p.add_argument("--num_steps", type=int, default=None,
                    help="DDIM/DPM-Solver++ steps (default: 20 for dpmpp, 50 for ddim)")
     p.add_argument("--use_ema", type=int, default=0)
+    p.add_argument("--artifact", default=None,
+                   help="serve an exported sampler (cli.export_model) instead of a checkpoint; "
+                        "overrides the batch and sampler flags")
     p.add_argument("--train_folder_for_classes", default=None)
     p.add_argument("--audio_out_sr", type=int, default=None,
                    help='resample "audio": true responses (e.g. 48000 for CLAP)')
@@ -98,7 +112,7 @@ def main(argv=None):
     run(cfg, port=a.port, host=a.host, serve_batch=a.serve_batch,
         max_delay_ms=a.max_delay_ms, sampler=a.sampler, num_steps=num_steps,
         use_ema=bool(a.use_ema), class_names=class_names, device=a.device, audio_out_sr=a.audio_out_sr,
-        audio_gl_iters=a.audio_gl_iters, warm_audio=a.warm_audio)
+        audio_gl_iters=a.audio_gl_iters, warm_audio=a.warm_audio, artifact=a.artifact)
 
 
 if __name__ == "__main__":

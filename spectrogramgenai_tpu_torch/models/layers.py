@@ -60,8 +60,11 @@ def _resize_matrix(n_in: int, n_out: int, device: torch.device, dtype: torch.dty
 def upsample_bilinear_align_corners(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
     """NCHW bilinear ×scale with align_corners=True, as two matmuls."""
     _, _, h, w = x.shape
-    ah = _resize_matrix(h, h * scale, x.device, x.dtype)
-    aw = _resize_matrix(w, w * scale, x.device, x.dtype)
+    # while torch.export traces, the matrices are made and not cached: a matrix
+    # cached under its fake mode is a fake tensor, which later eager calls would get
+    matrix = _resize_matrix.__wrapped__ if torch.compiler.is_compiling() else _resize_matrix
+    ah = matrix(h, h * scale, x.device, x.dtype)
+    aw = matrix(w, w * scale, x.device, x.dtype)
     x = torch.einsum("Hh,bchw->bcHw", ah, x)
     return torch.einsum("Ww,bchw->bchW", aw, x)
 

@@ -15,7 +15,12 @@ log-sum-exp and f32 output, and recomputes P in the backward:
 
 Each plain version computes the same function in PyTorch; a CUDA tensor
 launches the kernel or raises. There is no other path. Under
-``torch.inference_mode`` or ``no_grad`` (serving) no autograd node is made.
+``torch.inference_mode`` or ``no_grad`` (serving) no autograd node is made:
+the forward then runs as the operator ``spectrogramgenai_tpu_torch::attention_fwd``
+(:func:`attention_fwd`, a ``torch.library`` custom op with a fake
+implementation), which ``torch.export`` keeps as one node, so that an
+exported UNet (``serving/export.py``) launches the same kernel as eager
+serving. Importing this module registers the operator.
 """
 
 from __future__ import annotations
@@ -115,6 +120,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool = False):
     if q.device.type == "cpu":
         return attention_reference(q, k, v, residuals)
+    return _launch(q, k, v, residuals)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool = False):
+    """The forward kernel on CUDA tensors; counts the launch."""
     b, h, n, d = q.shape
     lib = _kernel("attention_fwd", 6, n_out=1)
     out = torch.empty_like(q)
@@ -132,6 +142,26 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, residuals: bool 
     fused_attention.launches += 1
     fused_attention.mma_launches += int(route.value == 1)  # the kernel that the C dispatch launched
     return (out, lse, o32) if residuals else out
+
+
+@torch.library.custom_op("spectrogramgenai_tpu_torch::attention_fwd", mutates_args=(), device_types="cpu")
+def attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward as an operator: :func:`attention_reference` on CPU tensors,
+    the kernel on CUDA tensors (counted in ``fused_attention.launches`` and
+    ``.mma_launches`` when it runs, also inside a loaded exported program).
+    Takes inputs that :func:`fused_attention` has checked."""
+    return attention_reference(q, k, v)
+
+
+@attention_fwd.register_kernel("cuda")
+def _attention_fwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return _launch(q, k, v)
+
+
+@attention_fwd.register_fake
+def _attention_fwd_fake(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    _check(q, k, v)
+    return torch.empty_like(q)
 
 
 def fused_attention_residuals(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
@@ -214,7 +244,7 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FusedAttention.apply(q, k, v)
-    return _forward(q, k, v)
+    return attention_fwd(q, k, v)
 
 
 fused_attention.launches = 0

@@ -12,6 +12,8 @@
     server's ``encode_png_batch_rgb``; ``/stats``' ``encode_seconds`` sums
     those calls), and with ``"audio": true`` also as base64 WAVs inverted on
     the task's device (``audio/invert.py``).
+  * The worker samples through a task, or through an exported artifact
+    (``BatchingSampler.from_artifact``), one seed per batch.
 """
 
 from __future__ import annotations
@@ -54,21 +56,34 @@ class BatchingSampler:
         first request arrives (the latency/throughput knob).
     sampler, num_steps, cfg_scale : forwarded to task.sample.
     seed : seeds the worker's generator on the task's device.
+
+    Alternatively construct with ``BatchingSampler.from_artifact(...)`` to
+    serve an exported sampler (``serving/export.py``): no task, checkpoint
+    or model code involved.
     """
 
     def __init__(self, task, *, batch_size: int = 27, max_delay_ms: float = 50.0,
                  sampler: str = "dpmpp", num_steps: int = 20, cfg_scale: float | None = None,
-                 seed: int = 0):
+                 seed: int = 0, artifact=None):
+        self.task = task
+        self._artifact = artifact
+        if artifact is not None:  # the artifact froze these at export time
+            batch_size = artifact.num_labels
+            sampler = artifact.manifest["sampler"]
+            num_steps = artifact.manifest["num_steps"]
+            cfg_scale = artifact.manifest["cfg_scale"]
+            # one seed per batch for the artifact's own generator, drawn from this one
+            self._generator = torch.Generator().manual_seed(seed)
+        else:
+            self._generator = torch.Generator(device=task.device).manual_seed(seed)
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
-        self.task = task
         self.batch_size = int(batch_size)
         self.max_delay_s = max_delay_ms / 1000.0
         self.sampler = sampler
         self.num_steps = int(num_steps)
         self.cfg_scale = cfg_scale
         self.last_device_error: str | None = None
-        self._generator = torch.Generator(device=task.device).manual_seed(seed)
         self._queue: queue.Queue[_Slot] = queue.Queue()
         self._stop = threading.Event()
         self._lock = threading.Lock()
@@ -78,13 +93,21 @@ class BatchingSampler:
         self._worker = threading.Thread(target=self._run, name="sampler-worker", daemon=True)
         self._worker.start()
 
+    @classmethod
+    def from_artifact(cls, artifact, *, max_delay_ms: float = 50.0, seed: int = 0):
+        """Serve a loaded ``ExportedSampler``: the artifact fixes the batch
+        size, sampler, steps and CFG scale."""
+        return cls(None, artifact=artifact, max_delay_ms=max_delay_ms, seed=seed)
+
     @property
     def num_classes(self) -> int:
+        if self._artifact is not None:
+            return self._artifact.manifest["num_classes"]
         return self.task.cfg.num_classes
 
     @property
     def device(self) -> torch.device:
-        return self.task.device
+        return self._artifact.device if self._artifact is not None else self.task.device
 
     # -- client API -------------------------------------------------------------
     def submit(self, label: int, count: int = 1) -> Future:
@@ -132,8 +155,12 @@ class BatchingSampler:
             labels[: len(slots)] = [s.label for s in slots]
             t0 = time.monotonic()
             try:
-                imgs = self.task.sample(labels, generator=self._generator, cfg_scale=self.cfg_scale,
-                                        sampler=self.sampler, num_steps=self.num_steps).cpu().numpy()
+                if self._artifact is not None:
+                    seed = int(torch.randint(0, 2**31 - 1, (), generator=self._generator))
+                    imgs = self._artifact(seed, labels)
+                else:
+                    imgs = self.task.sample(labels, generator=self._generator, cfg_scale=self.cfg_scale,
+                                            sampler=self.sampler, num_steps=self.num_steps).cpu().numpy()
             except Exception as e:  # surface device failures to every waiting client
                 self.last_device_error = f"{type(e).__name__}: {e}"
                 for s in slots:

@@ -125,6 +125,43 @@ def test_unet_kernel_route_matches_plain_route(gen):
     assert (got - want).abs().max().item() <= 1e-4  # f32, TF32 off
 
 
+def test_attention_op_on_the_card_and_in_an_exported_unet(gen):
+    # K1's forward as the operator spectrogramgenai_tpu_torch::attention_fwd: on bf16
+    # inputs it launches the tensor-core kernel, as fused_attention does, and an
+    # exported UNet keeps it at its three fused sites and launches it when it runs
+    import io
+
+    q, k, v = _qkv(gen, (2, 4, 1024, 32), torch.bfloat16)
+    launches, mma = fused_attention.launches, fused_attention.mma_launches
+    with torch.inference_mode():
+        got = torch.ops.spectrogramgenai_tpu_torch.attention_fwd(q, k, v)
+        want = fused_attention(q, k, v)
+    assert (fused_attention.launches, fused_attention.mma_launches) == (launches + 2, mma + 2)
+    assert torch.equal(got, want)
+    assert (got.float() - attention_reference(q, k, v).float()).abs().max().item() <= 1e-2
+
+    kw = dict(c_in=4, c_out=4, num_classes=3, width_mult=0.25)
+    fused = ConditionalUNet(**kw, fused_attention=True).reset_parameters(torch.Generator().manual_seed(0))
+    fused = fused.cuda().eval()
+    x = torch.randn(2, 64, 64, 4, device="cuda", generator=gen)
+    args = (x, torch.tensor([10.0, 900.0], device="cuda"), torch.tensor([2, 0], device="cuda"),
+            torch.tensor([1.0, 0.0], device="cuda"))
+    with torch.no_grad():
+        program = torch.export.export(fused, args, strict=False)
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    buf.seek(0)
+    loaded = torch.export.load(buf)
+    ops = [nd for nd in loaded.graph.nodes if "spectrogramgenai_tpu_torch.attention_fwd" in str(nd.target)]
+    assert len(ops) == 3
+    before = fused_attention.launches
+    with torch.inference_mode():
+        got = loaded.module()(*args)
+        want = fused(*args)
+    assert fused_attention.launches == before + 6  # 3 sites, twice
+    assert torch.equal(got, want)
+
+
 
 def _row_rel_err(got, want) -> float:
     """max over rows of |got − want| / |want|, norms over the head dim."""

@@ -327,12 +327,15 @@ import spectrogramgenai_tpu_torch as pkg
 mods = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for m in mods:
     importlib.import_module(m)
+print(" ".join(mods))
 print(len(mods))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 30
+    mods = set(out.stdout.split("\n")[-3].split())
+    assert {"spectrogramgenai_tpu_torch.serving.export", "spectrogramgenai_tpu_torch.cli.export_model"} <= mods
 
 
 def test_kernel_build_runs_one_compiler_per_source(tmp_path, monkeypatch):

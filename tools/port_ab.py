@@ -90,6 +90,10 @@ import chip_smoke as cs
 import spectrogramgenai_tpu_torch.ops.attention as attn
 from spectrogramgenai_tpu_torch.ops import _build
 _build.build(cs.KERNEL_SOURCES)
+# the smoke runs every phase after its kernel phase, which leaves TF32 off (the serve
+# phase's float32 route check needs that)
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 for phase in sys.argv[2].split(","):
     if phase == "kernel":
         cs.phase_kernel(torch, attn)
