@@ -42,7 +42,18 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 27 WAVs at 22,050 Hz of 97,920 samples, peak-normalised, and
                 /stats' audio_seconds for that batch of 27. One served batch's
                 device time by kernel (torch.profiler).
- 5a. export   — from the serve phase's checkpoints: cli.export_model.run
+ 5a. serve_ranks — the serve phase's checkpoints served by python -m
+                torch.distributed.run --standalone --nproc_per_node 1 -m
+                ...cli.serve (one NCCL rank, rank 0 the front), its requests
+                posted one after another: the PNGs pixel-equal to an
+                in-process cli.serve.run's answers to the same sequence with
+                the same seed, /healthz on cuda:0, the rank line's backend
+                nccl and every K1 launch on the tensor-core route; SIGINT to
+                rank 0 and exit 0. The torchrun process's start-up, each
+                server's seconds a batch (/stats busy_seconds), the control
+                channel's calls a batch, and the NCCL kernels in a batch traced
+                over a one-rank NCCL mesh in this process.
+ 5b. export   — from the serve phase's checkpoints: cli.export_model.run
                 writes a dpmpp-20 artifact at 27 labels (torch.export programs
                 of the UNet's ε forward and the VQ decode in a zip) and checks
                 it (--check); the artifact loaded here against eager
@@ -56,7 +67,7 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 answering POST /generate and /stats; then a ddpm artifact's
                 999-step chain (2,997 launches), its wall printed beside the
                 trajectory phase's eager chain. Export seconds and MB.
- 5b. invert   — audio/invert.db_mel_to_audio at full width (256 mels × 256
+ 5c. invert   — audio/invert.db_mel_to_audio at full width (256 mels × 256
                 frames, n_fft 2048, hop 384) on 27 tone-plus-noise clips: the
                 card's float32 chain against the same function in float64 on
                 the CPU (2 rows; the waveform after the 32 NNLS iterations and
@@ -219,6 +230,8 @@ import json
 import math
 import os
 import re
+import signal
+import socket
 import statistics
 import struct
 import subprocess
@@ -912,6 +925,161 @@ def phase_serve(torch, work: str) -> int:
     check_fwd_route_in_profile(what, log_profile(torch, what, lambda: batcher.task.sample(
         labels, generator=gen_s, sampler="dpmpp", num_steps=NUM_STEPS)))
     return launches
+
+
+def child_pids(pid: int) -> list[int]:
+    """The processes whose parent is ``pid`` (from /proc)."""
+    kids = []
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    stat = f.read()
+            except OSError:
+                continue
+            if int(stat[stat.rindex(")") + 2:].split()[1]) == pid:
+                kids.append(int(entry))
+    return kids
+
+
+def post_in_turn(base: str) -> tuple[list[dict], dict, float]:
+    """REQUESTS posted one after another (each batch's labels fixed by the
+    order alone): the bodies, /stats before them, and the wall of the full
+    batch without audio (label 26)."""
+    with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+        warm = json.loads(r.read())
+    bodies, full_s = [], 0.0
+    for p in REQUESTS:
+        req = urllib.request.Request(f"{base}/generate", data=json.dumps(p).encode(), method="POST")
+        t = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            check(r.status == 200, f"request {p} → {r.status}")
+            bodies.append(json.loads(r.read()))
+        if p["label"] == 26:
+            full_s = time.perf_counter() - t
+        check(len(bodies[-1]["images"]) == p["count"], f"request {p}: {p['count']} images")
+    return bodies, warm, full_s
+
+
+def phase_serve_ranks(torch, work: str) -> int:
+    """cli.serve under torchrun at one NCCL rank, from the serve phase's
+    checkpoints, against cli.serve.run in this process; returns the rank's K1 launches."""
+    import torch.distributed as dist
+
+    from spectrogramgenai_tpu_torch.cli import serve
+    from spectrogramgenai_tpu_torch.cli.common import load_task, make_mesh
+    from spectrogramgenai_tpu_torch.core.config import DDPMConfig, RunConfig
+
+    os.chdir(work)
+    cfg = DDPMConfig(run=RunConfig(run_name="smoke_ddpm", seed=0), vqae_ckpt="models/smoke_vq")
+    names = [f"class{i:02d}" for i in range(cfg.num_classes)]
+    batches = 1 + len(REQUESTS)  # the warm-up, then one a request (none holds more than a batch)
+
+    # the in-process server's answers, the requests posted one after another
+    server, batcher = serve.run(cfg, port=0, serve_batch=SERVE_BATCH, sampler="dpmpp", num_steps=NUM_STEPS,
+                                class_names=names, block=False, device="cuda")
+    try:
+        want, warm, want_full_s = post_in_turn(f"http://127.0.0.1:{server.port}")
+        stats = batcher.snapshot_stats()
+    finally:
+        server.shutdown()
+        batcher.close()
+    check(stats["batches"] == batches, f"in-process: {batches} batches ({stats['batches']})")
+    want_batch_s = (stats["busy_seconds"] - warm["busy_seconds"]) / (batches - 1)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, (REPO, os.environ.get("PYTHONPATH"))))}
+    args = ["--run.run_name", cfg.run.run_name, "--vqae_ckpt", cfg.vqae_ckpt, "--run.seed", str(cfg.run.seed),
+            "--port", str(port), "--serve_batch", str(SERVE_BATCH), "--sampler", "dpmpp",
+            "--num_steps", str(NUM_STEPS)]
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    with open("serve_ranks.out", "w") as out, open("serve_ranks.err", "w") as err:
+        proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+                                 "1", "-m", "spectrogramgenai_tpu_torch.cli.serve", *args], stdout=out, stderr=err,
+                                env=env)
+    try:
+        health = None
+        while health is None and time.perf_counter() - t0 < 300:
+            check(proc.poll() is None, f"torchrun serve exited {proc.returncode}:\n"
+                                       f"{open('serve_ranks.err').read()[-4000:]}")
+            try:
+                with urllib.request.urlopen(f"{base}/healthz", timeout=10) as r:
+                    health = (r.status, json.loads(r.read()))
+            except OSError:
+                time.sleep(0.2)
+        startup_s = time.perf_counter() - t0
+        check(health is not None, "torchrun serve: /healthz answered within 300 s")
+        got, got_warm, got_full_s = post_in_turn(base)
+        with urllib.request.urlopen(f"{base}/stats", timeout=60) as r:
+            got_stats = json.loads(r.read())
+        t_stop = time.perf_counter()
+        for pid in child_pids(proc.pid):  # rank 0: torchrun's one worker
+            os.kill(pid, signal.SIGINT)
+        rc = proc.wait(timeout=120)
+        stop_s = time.perf_counter() - t_stop
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    printed = open("serve_ranks.out").read()
+    check(rc == 0, f"torchrun serve exited {rc} after SIGINT to rank 0:\n{printed[-2000:]}\n"
+                   f"{open('serve_ranks.err').read()[-4000:]}")
+    check(health[0] == 200 and health[1]["ok"] and health[1]["device"] == "cuda:0", f"healthz {health}")
+    check(got_stats["batches"] == batches, f"torchrun serve: {batches} batches ({got_stats['batches']})")
+    for p, g, w in zip(REQUESTS, got, want):
+        same = all(np.array_equal(png_rgb(base64.b64decode(a)), png_rgb(base64.b64decode(b)))
+                   for a, b in zip(g["images"], w["images"]))
+        check(same, f"request {p}: the torchrun server's images pixel-equal to the in-process server's")
+        check(("audio" in g) == bool(p.get("audio")), f"request {p}: audio only when asked for")
+    rank = rank_report(printed, "torchrun serve")
+    kern, calls = rank["kernels"], rank["collectives"]
+    check(rank["backend"] == "nccl" and rank["mesh"] == {"data": 1, "model": 1} and rank["device"] == "cuda:0",
+          f"serve_ranks: one NCCL rank on cuda:0 ({rank})")
+    want_k1 = len(SA_SITES) * NUM_STEPS * batches
+    check(kern["attention_fwd"] >= want_k1 and kern["attention_fwd_mma"] == kern["attention_fwd"],
+          f"serve_ranks: K1 ≥ {want_k1} launches, all on the tensor-core route ({kern})")
+    got_batch_s = (got_stats["busy_seconds"] - got_warm["busy_seconds"]) / (batches - 1)
+    log(f"serve_ranks: torchrun --nproc_per_node 1 cli.serve up (/healthz 200) {startup_s:.2f} s after its start "
+        f"(the agent, imports, NCCL, checkpoints, one warm-up chain); {len(REQUESTS)} requests in turn, images "
+        f"pixel-equal to the in-process server's; SIGINT to rank 0 → exit 0 in {stop_s:.2f} s")
+    log(f"serve_ranks: seconds a batch (/stats busy_seconds, host clock, dpmpp-{NUM_STEPS}, batch {SERVE_BATCH}): "
+        f"torchrun rank {got_batch_s:.4f}, in-process {want_batch_s:.4f}; the full batch's request wall "
+        f"{got_full_s:.4f} against {want_full_s:.4f} s")
+    log(f"serve_ranks: rank line {json.dumps(rank)}; control channel calls a batch "
+        f"{sum(v for k, v in calls.items() if k.startswith('control')) / batches:.2f} (one rank: no followers)")
+
+    # one batch traced over a one-rank NCCL mesh in this process: its NCCL kernels
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        store_port = s.getsockname()[1]
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store_port), WORLD_SIZE="1", RANK="0",
+                      LOCAL_RANK="0")
+    try:
+        mesh = make_mesh(cfg.run, torch.device("cuda", 0))
+        task = load_task(cfg, torch.device("cuda", 0), mesh=mesh)
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        labels = torch.arange(SERVE_BATCH) % cfg.num_classes
+        task.sample(labels, generator=gen, sampler="dpmpp", num_steps=NUM_STEPS)  # warm
+        trace = os.path.join(work, "serve_ranks_trace.json")
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            task.sample(labels, generator=gen, sampler="dpmpp", num_steps=NUM_STEPS)
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        traced = trace_collectives(trace)
+        log(f"serve_ranks: one batch over a one-rank NCCL mesh ({mesh.backend()}), traced: "
+            f"{traced['nccl_kernels']} NCCL kernels, {traced['nccl_ms']:.3f} ms of {traced['kernel_ms']:.1f} ms "
+            f"device kernel time; collective calls {traced['calls']}; mesh calls {dict(mesh.calls)}")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK"):
+            os.environ.pop(var, None)
+    return kern["attention_fwd"]
 
 
 def phase_export(torch, work: str) -> tuple[int, float]:
@@ -2729,6 +2897,7 @@ def main() -> int:
     mel = timed("mel", phase_mel, torch)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as work:
         launches = timed("serve", phase_serve, torch, work)
+        rank_launches = timed("serve_ranks", phase_serve_ranks, torch, work)
         export_launches, export_chain_s = timed("export", phase_export, torch, work)
         os.chdir(REPO)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_invert_") as work:
@@ -2760,7 +2929,7 @@ def main() -> int:
     kernels = [{"name": "attention_fwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_fwd.cu",
                 "replaces": "spectrogramgenai_tpu/ops/attention.py:83",
-                "launches": launches + export_launches + train_launches[0] + traj_launches
+                "launches": launches + rank_launches + export_launches + train_launches[0] + traj_launches
                 + par_launches["attention_fwd"], **kern},
                {"name": "attention_bwd", "route": "cuda",
                 "source": "spectrogramgenai_tpu_torch/csrc/attention_bwd.cu",

@@ -5,7 +5,8 @@ A port trainer started under ``torchrun`` (one process per rank) joins the
 process group in :func:`setup` and trains over the (data, model) mesh of
 ``--run.mesh_data`` / ``--run.mesh_model`` with ``--run.param_sharding``;
 rank 0 alone logs and writes files, the other ranks wait for it at
-barriers. Without ``torchrun`` the run is the one-rank run it always was.
+barriers (``cli.generate`` and ``cli.serve`` split their sampling over the
+same mesh). Without ``torchrun`` the run is the one-rank run it always was.
 
   torchrun --standalone --nproc_per_node 8 -m spectrogramgenai_tpu_torch.cli.train_ddpm \\
       --run.param_sharding fsdp --data.batch_size 64 ...
@@ -80,9 +81,10 @@ def metrics_logger(mesh: Mesh, *args, **kwargs):
     return MetricsLogger(*args, **kwargs) if mesh.is_main else _NoLogger()
 
 
-def report_rank(mesh: Mesh) -> None:
+def report_rank(mesh: Mesh, **extra) -> None:
     """In a distributed run, one JSON line per rank: its place in the mesh,
-    the backend, the collectives it called and the kernel launches it made."""
+    the backend, the collectives it called, the kernel launches it made and
+    the caller's ``extra`` fields."""
     if not mesh.distributed:
         return
     from spectrogramgenai_tpu_torch.ops.attention import fused_attention, fused_attention_bwd
@@ -93,8 +95,8 @@ def report_rank(mesh: Mesh) -> None:
         "mesh": mesh.shape, "backend": mesh.backend(), "device": str(mesh.device),
         "collectives": dict(mesh.calls),
         "kernels": {"attention_fwd": fused_attention.launches, "attention_fwd_mma": fused_attention.mma_launches,
-                    "attention_bwd": fused_attention_bwd.launches, "mel_power": fused_mel_power.launches}}),
-        flush=True)
+                    "attention_bwd": fused_attention_bwd.launches, "mel_power": fused_mel_power.launches},
+        **extra}), flush=True)
 
 
 def restore(directory: str, what: str) -> dict[str, dict[str, torch.Tensor]]:

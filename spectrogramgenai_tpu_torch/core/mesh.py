@@ -15,13 +15,19 @@ batch as a plain local tensor (``process_local_slice``, ``rank_rows``) and
 the code that needs the global batch says so with a collective.
 
 Every collective of the port goes through a :class:`Mesh` method, which
-counts its calls by name in ``Mesh.calls``.
+counts its calls by name in ``Mesh.calls``. So do the operations of the
+control channel (:meth:`Mesh.open_control`): a key-value store beside the
+process group, over which a long-lived job (the server of ``cli/serve.py``)
+tells its ranks what to run next. Its waits end after a timeout that the
+caller chooses and can be made again, so a rank may sit idle for hours,
+where a blocked NCCL collective would run into the process group's watchdog.
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import datetime
 import os
 from typing import Callable
 
@@ -132,6 +138,8 @@ class Mesh:
         self.data, self.model = data, model
         self.device_mesh = device_mesh
         self.calls: collections.Counter = collections.Counter()
+        self.check_in: Callable[[], None] | None = None  # run before the rows' gather (gather_rows)
+        self._control = None
         if device_mesh is None:
             self.rank, self.data_index, self.model_index = 0, 0, 0
             self._groups = {DATA_AXIS: None, MODEL_AXIS: None}
@@ -148,6 +156,10 @@ class Mesh:
     def distributed(self) -> bool:
         """True if this rank is in a process group (a ``torchrun`` run, one rank included)."""
         return self.device_mesh is not None
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
 
     @property
     def is_main(self) -> bool:
@@ -207,9 +219,13 @@ class Mesh:
         return _GatherFromModel.apply(y, self, dim)
 
     def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """The data group's rows, concatenated in data order (every rank gets them all)."""
+        """The data group's rows, concatenated in data order (every rank gets
+        them all). ``check_in``, where set, runs first: it raises, and no rank
+        enters the gather, if a rank failed before reaching it."""
         if self.data == 1:
             return t
+        if self.check_in is not None:
+            self.check_in()
         return self.all_gather(t, DATA_AXIS).flatten(0, 1)
 
     def mean_over_data(self, metrics: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -220,6 +236,37 @@ class Mesh:
         self.all_reduce_(stacked, DATA_AXIS)
         stacked = stacked / self.data
         return dict(zip(metrics, stacked.unbind(0)))
+
+    # -- control channel ---------------------------------------------------------
+    def open_control(self, name: str) -> None:
+        """Connect to the job's key-value store, the TCP store that ``torchrun``
+        (or rank 0, without its agent) serves at ``MASTER_ADDR:MASTER_PORT``,
+        under the prefix ``name`` and the restart count."""
+        store = dist.TCPStore(os.environ["MASTER_ADDR"], int(os.environ["MASTER_PORT"]), is_master=False)
+        self._control = dist.PrefixStore(f"{name}/{os.environ.get('TORCHELASTIC_RESTART_COUNT', '0')}", store)
+
+    def post(self, key: str, value: bytes) -> None:
+        self.calls["control_post"] += 1
+        self._control.set(key, value)
+
+    def wait_posted(self, keys: list[str], timeout_s: float) -> bool:
+        """True once every key is posted; False after ``timeout_s`` (the wait
+        may be made again). A lost store raises."""
+        self.calls["control_wait"] += 1
+        try:
+            self._control.wait(keys, datetime.timedelta(seconds=timeout_s))
+        except dist.DistStoreError:  # the timeout; a lost store raises DistNetworkError
+            return False
+        return True
+
+    def read_posted(self, key: str) -> bytes:
+        self.calls["control_read"] += 1
+        return self._control.get(key)
+
+    def unpost(self, keys: list[str]) -> None:
+        self.calls["control_delete"] += len(keys)
+        for key in keys:
+            self._control.delete_key(key)
 
     # -- rows --------------------------------------------------------------------
     def draw_rows(self, draw: Callable[[int], torch.Tensor], n: int) -> torch.Tensor:
@@ -235,7 +282,10 @@ def create_mesh(spec: MeshSpec = MeshSpec(), device: torch.device | str = "cpu")
     without one). Every rank must be in the mesh: a rank outside it would
     have no rows to train."""
     if not dist.is_initialized():
-        spec.resolve(1)
+        try:
+            spec.resolve(1)
+        except ValueError as e:
+            raise ValueError(f"{e}: without torchrun there is one rank") from None
         return Mesh(device)
     from torch.distributed.device_mesh import init_device_mesh
 

@@ -14,6 +14,18 @@
     the task's device (``audio/invert.py``).
   * The worker samples through a task, or through an exported artifact
     (``BatchingSampler.from_artifact``), one seed per batch.
+  * Under ``torchrun`` (``cli/serve.py``) rank 0 is the front: it alone
+    binds the port and runs the queue, the worker, the PNG encode and the
+    audio inversion. The other ranks follow (:class:`RankGroup`): for every
+    batch the worker takes, they run the same ``task.sample`` call on the
+    same padded labels with a generator seeded alike, so that the labels
+    split over the mesh's data axis (and the wide layers over its model
+    axis) and the R-rank batch is the one-rank batch. The labels and the
+    stop travel over the mesh's control channel, not over NCCL: a follower
+    waits there through idle hours. A rank that fails posts its error
+    before the rows' gather, so that no rank waits in a gather that will not
+    complete; the front's batch then fails, naming the rank, and /healthz
+    turns 503.
 """
 
 from __future__ import annotations
@@ -23,14 +35,153 @@ import json
 import queue
 import threading
 import time
+import traceback
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Callable
 
 import numpy as np
 import torch
 
 from spectrogramgenai_tpu_torch.audio.export import generated_png_bytes
 from spectrogramgenai_tpu_torch.audio.invert import AudioReconstructor
+from spectrogramgenai_tpu_torch.core.mesh import Mesh
+
+# one wait on the control channel: an idle follower waits again after it, so
+# this bounds no idle time, only how long a wait holds a store connection
+CONTROL_WAIT_S = 600.0
+# the longest one rank may wait for another's status within a batch: the ranks
+# run the same chain side by side, so this bounds their lag, not the chain
+RANK_LAG_LIMIT_S = 900.0
+_STOP = b""  # the op that ends the followers' loop (a batch's labels are never empty)
+
+
+class RankError(RuntimeError):
+    """A rank of the server failed (or missed) a batch."""
+
+
+def sample_fn(task, *, seed: int, sampler: str, num_steps: int,
+              cfg_scale: float | None) -> Callable[[np.ndarray], np.ndarray]:
+    """The sampler call of one served batch: labels → (n, H, W, 1) uint8 on
+    the host, with a generator on the task's device seeded once from ``seed``
+    (every rank of a server makes the same calls in the same order)."""
+    generator = torch.Generator(device=task.device).manual_seed(seed)
+
+    def sample(labels: np.ndarray) -> np.ndarray:
+        return task.sample(labels, generator=generator, cfg_scale=cfg_scale, sampler=sampler,
+                           num_steps=num_steps).cpu().numpy()
+
+    return sample
+
+
+class RankGroup:
+    """The ranks of a server over a mesh, joined by its control channel
+    (``Mesh.open_control``). Batch k's keys: ``op/k``, the front's padded
+    labels as little-endian int64 (empty: stop), and ``status/k/r``, rank
+    r's status: empty once it reaches the rows' gather (``Mesh.check_in``)
+    or ends its sample call, else its error. The front deletes batch k's keys
+    when batch k + 1 ends, by which time every rank has read them."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+        self.batches = 0  # batches run on this rank, failed ones included: the next op's number
+        self._posted = False
+        self._lock = threading.Lock()
+        mesh.open_control("spectrogramgenai_serve")
+
+    def _others(self) -> list[int]:
+        return [r for r in range(self.mesh.world) if r != self.mesh.rank]
+
+    def _post_status(self, error: str = "") -> None:
+        self.mesh.post(f"status/{self.batches}/{self.mesh.rank}", error.encode())
+        self._posted = True
+
+    def _statuses(self, ranks: list[int], limit_s: float = RANK_LAG_LIMIT_S) -> dict[int, str]:
+        """The statuses of ``ranks`` in this batch, once all are posted."""
+        keys = [f"status/{self.batches}/{r}" for r in ranks]
+        deadline = time.monotonic() + limit_s
+        while not self.mesh.wait_posted(keys, max(min(CONTROL_WAIT_S, deadline - time.monotonic()), 1e-3)):
+            if time.monotonic() >= deadline:
+                raise RankError(f"ranks {ranks} posted no status for batch {self.batches} within {limit_s} s")
+        return {r: self.mesh.read_posted(key).decode() for r, key in zip(ranks, keys)}
+
+    def _raise_failed(self, ranks: list[int]) -> None:
+        """Raise :class:`RankError` naming each of ``ranks`` that posted an error in this batch."""
+        failed = [f"rank {r}: {e}" for r, e in self._statuses(ranks).items() if e]
+        if failed:
+            raise RankError("; ".join(failed))
+
+    def _check_in(self) -> None:
+        """Before the rows' gather: post that this rank got there, and raise
+        instead of gathering if another rank failed."""
+        self._post_status()
+        self._raise_failed(self._others())
+
+    def _run(self, sample, labels: np.ndarray) -> np.ndarray:
+        """This rank's sample call of the batch, its status posted."""
+        self._posted = False
+        self.mesh.check_in = self._check_in
+        try:
+            out = sample(labels)
+        except RankError:  # another rank's failure, seen at the check-in: already posted
+            raise
+        except Exception as e:
+            self._post_status(f"{type(e).__name__}: {e}")
+            raise
+        finally:
+            self.mesh.check_in = None
+        if not self._posted:
+            self._post_status()
+        return out
+
+    def _keys(self, k: int) -> list[str]:
+        return [f"op/{k}"] + [f"status/{k}/{r}" for r in range(self.mesh.world)] if k >= 0 else []
+
+    # -- the front (rank 0) -------------------------------------------------------
+    def lead(self, sample, labels: np.ndarray) -> np.ndarray:
+        """Run one batch on every rank; raises :class:`RankError` naming each
+        rank that failed it."""
+        with self._lock:
+            self.mesh.post(f"op/{self.batches}", np.ascontiguousarray(labels, "<i8").tobytes())
+            own = None
+            try:
+                out = self._run(sample, labels)
+            except Exception as e:
+                own = e
+            try:
+                self._raise_failed(self._others())
+            finally:
+                self.mesh.unpost(self._keys(self.batches - 1))
+                self.batches += 1
+            if own is not None:
+                raise own
+            return out
+
+    def stop(self) -> None:
+        """Post stop and wait for every follower to take it."""
+        with self._lock:
+            self.mesh.post(f"op/{self.batches}", _STOP)
+            self._statuses(self._others(), limit_s=CONTROL_WAIT_S)
+            self.mesh.unpost(self._keys(self.batches - 1) + self._keys(self.batches))
+
+    # -- a follower (every other rank) -----------------------------------------
+    def follow(self, sample) -> None:
+        """Run every batch the front posts, until it posts stop. A failed
+        batch is reported by the front; this rank prints its traceback and
+        goes on."""
+        while True:
+            key = f"op/{self.batches}"
+            while not self.mesh.wait_posted([key], CONTROL_WAIT_S):
+                pass  # idle: wait again
+            op = self.mesh.read_posted(key)
+            if op == _STOP:
+                self._post_status()
+                return
+            try:
+                self._run(sample, np.frombuffer(op, "<i8").copy())
+            except Exception:
+                traceback.print_exc()
+            self.batches += 1
 
 
 class _Slot:
@@ -56,6 +207,8 @@ class BatchingSampler:
         first request arrives (the latency/throughput knob).
     sampler, num_steps, cfg_scale : forwarded to task.sample.
     seed : seeds the worker's generator on the task's device.
+    ranks : the :class:`RankGroup` of a server over several ranks; this
+        sampler is then the front's, and each batch runs on every rank.
 
     Alternatively construct with ``BatchingSampler.from_artifact(...)`` to
     serve an exported sampler (``serving/export.py``): no task, checkpoint
@@ -64,9 +217,10 @@ class BatchingSampler:
 
     def __init__(self, task, *, batch_size: int = 27, max_delay_ms: float = 50.0,
                  sampler: str = "dpmpp", num_steps: int = 20, cfg_scale: float | None = None,
-                 seed: int = 0, artifact=None):
+                 seed: int = 0, artifact=None, ranks: RankGroup | None = None):
         self.task = task
         self._artifact = artifact
+        self._ranks = ranks
         if artifact is not None:  # the artifact froze these at export time
             batch_size = artifact.num_labels
             sampler = artifact.manifest["sampler"]
@@ -75,7 +229,7 @@ class BatchingSampler:
             # one seed per batch for the artifact's own generator, drawn from this one
             self._generator = torch.Generator().manual_seed(seed)
         else:
-            self._generator = torch.Generator(device=task.device).manual_seed(seed)
+            self._sample = sample_fn(task, seed=seed, sampler=sampler, num_steps=num_steps, cfg_scale=cfg_scale)
         if batch_size < 1:
             raise ValueError(f"batch_size must be positive, got {batch_size}")
         self.batch_size = int(batch_size)
@@ -123,8 +277,11 @@ class BatchingSampler:
         return fut
 
     def close(self):
+        """Stop the worker and, over several ranks, the followers."""
         self._stop.set()
         self._worker.join(timeout=10)
+        if self._ranks is not None:
+            self._ranks.stop()
 
     # -- worker -----------------------------------------------------------------
     def _take_batch(self) -> list[_Slot]:
@@ -158,9 +315,10 @@ class BatchingSampler:
                 if self._artifact is not None:
                     seed = int(torch.randint(0, 2**31 - 1, (), generator=self._generator))
                     imgs = self._artifact(seed, labels)
+                elif self._ranks is not None:
+                    imgs = self._ranks.lead(self._sample, labels)
                 else:
-                    imgs = self.task.sample(labels, generator=self._generator, cfg_scale=self.cfg_scale,
-                                            sampler=self.sampler, num_steps=self.num_steps).cpu().numpy()
+                    imgs = self._sample(labels)
             except Exception as e:  # surface device failures to every waiting client
                 self.last_device_error = f"{type(e).__name__}: {e}"
                 for s in slots:

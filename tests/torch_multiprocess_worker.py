@@ -9,7 +9,7 @@ gloo, on the CPU with one torch thread, and writes each job's result to
 ``Mesh`` is the one-rank reference of the same job. Imports no JAX.
 
 A job is a dict with ``kind`` (``ddpm``, ``classifier``, ``vqvae``,
-``data``) and ``name``; the global batches in it are whole, each rank takes
+``data``, ``sample``) and ``name``; the global batches in it are whole, each rank takes
 its rows (``core.mesh.rank_rows``). Rank 0's result holds the whole
 tensors; every rank's holds what differs between ranks.
 """
@@ -200,7 +200,20 @@ def data_job(job: dict, mesh: Mesh) -> dict:
     return {"loss": losses, "val": evals, "checksum": checksum, "count": count}
 
 
-JOBS = {"ddpm": ddpm_job, "classifier": classifier_job, "vqvae": vqvae_job, "data": data_job}
+def sample_job(job: dict, mesh: Mesh) -> dict:
+    """``DiffusionTask.sample`` of ``job["sample"]`` (labels, x_T) with the
+    weights ``job["params"]``: the labels split over the data group."""
+    from spectrogramgenai_tpu_torch.train.diffusion_task import DiffusionTask
+
+    task = DiffusionTask(tc.DDPMConfig(**job["cfg"], run=tc.RunConfig(seed=0, param_sharding=job["mode"])), "cpu",
+                         mesh=mesh)
+    task.load_params(job["params"])
+    labels, x_T = job["sample"]
+    return {"sample": task.sample(labels, x_T=x_T, sampler=job["sampler"], num_steps=job["num_steps"]),
+            "collectives": dict(mesh.calls)}
+
+
+JOBS = {"ddpm": ddpm_job, "classifier": classifier_job, "vqvae": vqvae_job, "data": data_job, "sample": sample_job}
 
 
 def run_job(job: dict, mesh: Mesh) -> dict:
