@@ -182,6 +182,23 @@ Phases, each fatal on failure (nothing is caught and passed over):
                 the CLAP shape (8 × 481,024 samples, n_fft 1024, hop 480, 64 mels,
                 centre off) and the FAD shape (32 clips at 48 kHz) against its plain
                 version and the float64 oracle, timed.
+ 11c. provision — tools/port_provision_eval_weights.py on the card into
+                eval_provisioned/: seeded random tests/torch_refs.py InceptionV3
+                and ResNet18 state_dicts (1000 classes, convolutions × 2√2) as
+                .pth files, converted, verified on cuda against the torch oracle
+                (float32, TF32 off, max-abs logit error ≤ 5e-3) and installed as
+                inception_v3.msgpack and resnet18_imagenet.msgpack, each read
+                back (load_inception_params, ClassifierTask.pretrained_variables)
+                bit-equal to the converted tree; an HF-layout state_dict of a
+                random port CLAP tower refused without --skip_verify while
+                transformers is hidden, installed with it, the file holding the
+                starting tree, then, where transformers is installed, verified
+                against its tower on cuda (≤ 5e-3); cli.verify_metrics.run on the evaluators' pairs
+                (IS, FID and CLAP-FAD from those files, no random-weights
+                warning; K2 exact at the CLAP shape, counted on the main path)
+                and one epoch of cli.train_classifiers --pretrained_dir
+                eval_provisioned for ResNet18 (its non-head parameters loaded);
+                seconds, errors and MB per model.
  12. acgan    — cli.train_acgan.run on the 27-class corpus at the ACGANConfig
                 defaults (generator 512 → 32 channels, 256×256, noise 64 + 27,
                 batch 16, bf16, RMSprop) for epochs 1 … 10, to its checkpoint
@@ -225,6 +242,7 @@ from __future__ import annotations
 import base64
 import contextlib
 import csv
+import importlib.util
 import io
 import json
 import math
@@ -1755,13 +1773,13 @@ def timed_embeddings(torch, wavs: list, mode: str, model=None) -> tuple[np.ndarr
     return emb / np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-12), t_mel, t_tower
 
 
-def phase_evaluators(torch, work: str) -> int:
+def phase_evaluators(torch, work: str) -> tuple[int, tuple[str, str]]:
     """The evaluators through their CLIs with JAX-layout checkpoints of random
     port weights: cli.inception_score, cli.fid's Inception path, cli.fad (mel
     and clap modes, a directory against itself), cli.verify_metrics.run and
     cli.train_classifiers --pretrained_dir; the towers card against CPU; the
     exact mel kernel at the CLAP and FAD shapes. Returns the exact mel kernel's
-    launches on the main path."""
+    launches on the main path and the (real, generated) WAV directories."""
     from spectrogramgenai_tpu_torch.audio.spectrogram import SpectrogramConfig
     from spectrogramgenai_tpu_torch.cli import fad as fad_cli
     from spectrogramgenai_tpu_torch.cli import fid as fid_cli
@@ -1908,6 +1926,174 @@ def phase_evaluators(torch, work: str) -> int:
     log(f"evaluators: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del model, clap, audio
     torch.cuda.empty_cache()
+    return launches, (real_audio, gen_audio)
+
+
+def hf_clap_state_dict(module) -> dict:
+    """A port CLAP tower's weights as HF ClapAudioModelWithProjection's
+    state_dict: tools/port_convert_clap.py's key mapping inverted. The port's
+    torch layouts are HF's, so only the names change."""
+    renames = ((r"^layers_(\d+)_blocks_(\d+)\.", r"layers.\1.blocks.\2."),
+               (r"^layers_(\d+)_downsample\.", r"layers.\1.downsample."),
+               (r"^patch_embed_(proj|norm)\.", r"patch_embed.\1."),
+               (r"\.attention\.(query|key|value|relative_position_bias_table)", r".attention.self.\1"),
+               (r"\.attention\.out\.", ".attention.output.dense."),
+               (r"\.(intermediate|output)\.(weight|bias)$", r".\1.dense.\2"))
+    out = {}
+    for k, v in module.state_dict().items():
+        if k.startswith(("linear1.", "linear2.")):
+            out["audio_projection." + k] = v
+            continue
+        for pattern, repl in renames:
+            k = re.sub(pattern, repl, k)
+        out["audio_model.audio_encoder." + k] = v
+    return out
+
+
+def flat_tree(tree: dict, prefix: tuple = ()) -> dict:
+    """{path: leaf} of a nested dict."""
+    out = {}
+    for k, v in tree.items():
+        out.update(flat_tree(v, prefix + (k,)) if isinstance(v, dict) else {prefix + (k,): v})
+    return out
+
+
+def same_tree(got: dict, want: dict) -> bool:
+    """The same paths, and at each the same dtype, shape and values."""
+    got, want = flat_tree(got), flat_tree(want)
+    return set(got) == set(want) and all(
+        np.asarray(got[k]).dtype == np.asarray(want[k]).dtype and np.array_equal(got[k], want[k]) for k in want)
+
+
+@contextlib.contextmanager
+def hidden_module(name: str):
+    """``import name`` (and its submodules) fails inside the block, as where it is not installed."""
+    saved = {m: sys.modules.pop(m) for m in list(sys.modules) if m == name or m.startswith(name + ".")}
+    sys.modules[name] = None
+    try:
+        yield
+    finally:
+        del sys.modules[name]
+        sys.modules.update(saved)
+
+
+def phase_provision(torch, audio: tuple[str, str]) -> int:
+    """tools/port_provision_eval_weights.py on the card into eval_provisioned/:
+    seeded random tests/torch_refs.py InceptionV3 and ResNet18 (1000 classes)
+    converted, verified on cuda and installed, each file read back bit-equal
+    to the converted tree; an HF-layout CLAP state_dict of a random port tower
+    refused without --skip_verify while transformers is hidden and installed
+    with it, then, where transformers is installed, verified against its
+    tower on the card; then cli.verify_metrics.run (IS, FID, CLAP-FAD from those files) and one
+    epoch of cli.train_classifiers --pretrained_dir eval_provisioned. Returns
+    the exact mel kernel's launches on the main path."""
+    for sub in ("tools", "tests"):
+        sys.path.insert(0, os.path.join(REPO, sub))
+    import port_provision_eval_weights as prov
+    from port_convert_torchvision import CONVERTERS, load_state_dict
+    from torch_refs import TorchInceptionV3, TorchResNet18, randomize_
+
+    from spectrogramgenai_tpu_torch.bridge import flax_from_state_dict, state_dict_from_flax
+    from spectrogramgenai_tpu_torch.cli import train_classifiers, verify_metrics
+    from spectrogramgenai_tpu_torch.core.config import ClassifierConfig
+    from spectrogramgenai_tpu_torch.eval.clap import ClapAudioTower, load_clap_params
+    from spectrogramgenai_tpu_torch.eval.inception import load_inception_params
+    from spectrogramgenai_tpu_torch.models.classifiers import ResNet18, reset_classifier
+    from spectrogramgenai_tpu_torch.ops.mel_kernel import fused_mel_power
+    from spectrogramgenai_tpu_torch.train.classifier_task import ClassifierTask
+
+    out, src = "eval_provisioned", "provision_sources"
+    os.makedirs(src, exist_ok=True)
+    for name, cls in (("inception_v3", TorchInceptionV3), ("resnet18", TorchResNet18)):
+        path = os.path.join(src, f"{name}.pth")
+        # the convolutions scaled by 2√2 against randomize_'s BatchNorm scales of ~0.5 and the ReLUs, so that
+        # activations stay O(1) through the depth and the scores below are not those of a constant net
+        sd = randomize_(cls(num_classes=1000), seed=5).state_dict()
+        torch.save({k: v * (2 * math.sqrt(2)) if v.ndim == 4 else v for k, v in sd.items()}, path)
+        t = time.perf_counter()
+        manifest, printed = run_quiet(prov.main, [f"--{name}", path, "--out_dir", out])
+        secs = time.perf_counter() - t
+        entry = manifest[name]
+        for line in printed.splitlines():
+            log(f"provision: {line}")
+        check(entry["verified"] is True and entry["max_abs_forward_err"] <= prov.ATOL,
+              f"{name} verified on the card, max-abs error {entry['max_abs_forward_err']!r} <= {prov.ATOL}")
+        want = CONVERTERS[name](load_state_dict(path))
+        if name == "inception_v3":
+            check(same_tree(load_inception_params(entry["path"]), want),
+                  "load_inception_params reads the converted tree bit-equal")
+        else:
+            task = ClassifierTask(ClassifierConfig(model_name="resnet", num_classes=TRAIN_CLASSES), "cpu")
+            merged, n_used = task.pretrained_variables(entry["path"])
+            ref = state_dict_from_flax(ResNet18(1000), want)
+            body = [k for k in ref if not k.startswith("fc.")]
+            n_resnet = len(flat_tree(want["params"])) - 2
+            check(n_used == n_resnet and all(torch.equal(merged[k], ref[k]) for k in body),
+                  f"pretrained_variables takes {n_used} of the file's parameters (want {n_resnet}), "
+                  f"every non-head tensor bit-equal to the converted tree")
+        log(f"provision: {name} (1000 classes) converted, verified on the card (float32, TF32 off, 2 × 96×96) "
+            f"and installed in {secs:.2f} s: max-abs logit error {entry['max_abs_forward_err']:.3g}, "
+            f"{os.path.getsize(entry['path']) / 1e6:.1f} MB → {entry['path']}")
+
+    # CLAP: its forward check needs transformers; hidden, as where it is not installed, CLAP is refused
+    tower = ClapAudioTower()
+    reset_classifier(tower, torch.Generator().manual_seed(104))
+    start = flax_from_state_dict(tower, tower.state_dict())
+    path = os.path.join(src, "clap_pytorch_model.bin")
+    torch.save(hf_clap_state_dict(tower), path)
+    clap_file = os.path.join(out, "clap_audio.msgpack")
+    with hidden_module("transformers"):
+        try:
+            run_quiet(prov.main, ["--clap", path, "--out_dir", out])
+            refused = ""
+        except RuntimeError as e:
+            refused = str(e)
+        check("--skip_verify" in refused and not os.path.exists(clap_file),
+              f"CLAP without transformers and without --skip_verify is refused, nothing installed: {refused!r}")
+        t = time.perf_counter()
+        manifest, _ = run_quiet(prov.main, ["--clap", path, "--out_dir", out, "--skip_verify"])
+        secs = time.perf_counter() - t
+    check(manifest["clap"]["verified"] is False and "max_abs_forward_err" not in manifest["clap"],
+          "the manifest records CLAP as unverified")
+    check(same_tree(load_clap_params(clap_file), start), "the installed CLAP file holds the starting tree bit-equal")
+    log(f"provision: CLAP without transformers refused without --skip_verify ({refused}); with it converted and "
+        f"installed in {secs:.2f} s, {os.path.getsize(clap_file) / 1e6:.1f} MB, the starting tree bit-equal")
+    if importlib.util.find_spec("transformers") is None:
+        log("provision: transformers is not installed here, so CLAP stays unverified")
+    else:  # the HF tower on the card against the port's (HTSAT-tiny, float32, TF32 off)
+        import transformers
+
+        t = time.perf_counter()
+        manifest, _ = run_quiet(prov.main, ["--clap", path, "--out_dir", out])
+        secs, err = time.perf_counter() - t, manifest["clap"]["max_abs_forward_err"]
+        check(manifest["clap"]["verified"] is True and err <= prov.ATOL,
+              f"CLAP verified against transformers' tower on the card, max-abs error {err!r} <= {prov.ATOL}")
+        check(same_tree(load_clap_params(clap_file), start), "the verified CLAP file holds the starting tree")
+        log(f"provision: CLAP verified against transformers {transformers.__version__}'s "
+            f"ClapAudioModelWithProjection (1 × 1001 frames) and installed in {secs:.2f} s: max-abs embedding "
+            f"error {err:.3g}")
+
+    # the evaluators and --pretrained_dir from the provisioned directory
+    fused_mel_power.launches = 0  # the main path starts here
+    results, printed = run_quiet(verify_metrics.run, "datasets/val", "gen_images", out, real_audio_dir=audio[0],
+                                 gen_audio_dir=audio[1], device="cuda")
+    launches = fused_mel_power.launches  # the main path ends here
+    for line in printed.splitlines():
+        log(f"provision verify_metrics: {line}")
+    inc = manifest["inception_v3"]
+    check(f"inception_v3: sha256={inc['sha256'][:12]}… verified=True" in printed and "WARNING" not in printed,
+          "verify_metrics names the provisioned InceptionV3 and warns of no random weights")
+    check(set(results) == {"inception_score_mean", "inception_score_std", "fid", "fad"}
+          and all(math.isfinite(v) and v >= 0 for v in results.values()) and results["inception_score_mean"] >= 1.0 - 1e-12,
+          f"IS >= 1, FID and FAD finite and >= 0: {results}")
+    check(launches > 0, f"the CLAP front end launched the exact mel kernel ({launches})")
+    _, printed = run_quiet(train_classifiers.main, [
+        "--train_dir", "datasets/train", "--val_dir", "datasets/val", "--models", "resnet", "--synths", "0",
+        "--epochs", "1", "--pretrained_dir", out, "--run.output_dir", "sweep_provisioned", "--device", "cuda"])
+    loaded = f"resnet: loaded {n_resnet} pretrained tensors from {out}/resnet18_imagenet.msgpack"
+    check(loaded in printed, f"train_classifiers --pretrained_dir {out}: {loaded!r}")
+    log(f"provision: verify_metrics {json.dumps(results)} from {out}/ (exact mel kernel launches {launches}); "
+        f"cli.train_classifiers --pretrained_dir: {loaded}")
     return launches
 
 
@@ -2919,7 +3105,8 @@ def main() -> int:
         timed("parallel_classifier", phase_parallel_classifier, torch, sweep_args)
         timed("figures", phase_figures, torch)
         timed("fid", phase_fid, torch)
-        eval_launches = timed("evaluators", phase_evaluators, torch, work)
+        eval_launches, eval_audio = timed("evaluators", phase_evaluators, torch, work)
+        provision_launches = timed("provision", phase_provision, torch, eval_audio)
         timed("acgan", phase_acgan, torch)
         timed("acgan_manifest", phase_acgan_manifest, torch)
         specunet_launches, denoiser_ckpt = timed("specunet", phase_specunet, torch, work)
@@ -2938,7 +3125,8 @@ def main() -> int:
     for _, rung, replaces in MEL_RUNGS:
         kernels.append({"name": f"mel_power_{rung}", "route": "cuda",
                         "source": "spectrogramgenai_tpu_torch/csrc/mel_power.cu", "replaces": replaces,
-                        "launches": mel_launches[rung] + (specunet_launches + eval_launches if rung == "exact" else 0),
+                        "launches": mel_launches[rung] + (specunet_launches + eval_launches + provision_launches
+                                                        if rung == "exact" else 0),
                         **mel[rung]})
     log(f"smoke: {time.perf_counter() - t_smoke:.1f} s wall from the build to the kernels line")
     log(json.dumps({"kernels": kernels}))

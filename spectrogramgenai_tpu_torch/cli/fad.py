@@ -25,7 +25,7 @@ def main(argv=None) -> float:
     p.add_argument("--eval_emb", default=None)
     p.add_argument("--mode", default="mel", choices=["mel", "clap"])
     p.add_argument("--clap_ckpt", default=None,
-                   help="converted CLAP audio tower (tools/convert_clap.py) for --mode clap")
+                   help="converted CLAP audio tower (tools/port_convert_clap.py) for --mode clap")
     p.add_argument("--sample_rate", type=int, default=48000)
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
     a = p.parse_args(argv)
@@ -40,7 +40,7 @@ def main(argv=None) -> float:
                 "CLAP embedding the reference's FAD uses. Scores are only "
                 "meaningful relative to other mel-mode scores; for "
                 "reference-comparable FAD, provision CLAP weights "
-                "(tools/provision_eval_weights.py) and pass --mode clap.",
+                "(tools/port_provision_eval_weights.py) and pass --mode clap.",
                 file=sys.stderr,
             )
         from spectrogramgenai_tpu_torch.cli.common import resolve_device

@@ -134,7 +134,7 @@ def main(argv=None):
 
     params = load_inception_params(a.weights)
     if params is None and not a.allow_random_weights:
-        sys.exit("no converted InceptionV3 weights; pass --weights (tools/convert_torchvision.py), "
+        sys.exit("no converted InceptionV3 weights; pass --weights (tools/port_convert_torchvision.py), "
                  "--classifier_ckpt for a domain classifier feature space, "
                  "or --allow_random_weights 1 for a smoke run")
     if params is None:

@@ -5,7 +5,7 @@ Folder of PNGs → RGB 299×299 → InceptionV3 logits → IS mean ± std (split
 (PIL's ``convert("RGB")`` and BILINEAR resize, here in NumPy). The forward
 runs in float32 with TF32 off on ``--device`` (CUDA by default).
 
-Needs converted ImageNet weights (``tools/convert_torchvision.py`` →
+Needs converted ImageNet weights (``tools/port_convert_torchvision.py`` →
 ``--weights``); without them the CLI refuses to print a score unless
 ``--allow_random_weights 1`` is passed (a pipeline check only: the port's
 random init, not the JAX package's, so the two print different scores).
@@ -88,7 +88,7 @@ def main(argv=None):
     params = load_inception_params(a.weights)
     if params is None and not a.allow_random_weights:
         sys.exit("no converted InceptionV3 weights found; pass --weights (see "
-                 "tools/convert_torchvision.py) or --allow_random_weights 1 for a smoke run")
+                 "tools/port_convert_torchvision.py) or --allow_random_weights 1 for a smoke run")
     if params is None:
         print("WARNING: random InceptionV3 weights — score is NOT meaningful")
 

@@ -13,7 +13,7 @@ knowledge distillation against those BirdNET embeddings. With
 --mode denoise``) every image is preprocessed as x ← renorm(x − denoiser(x))
 by that float32 denoiser. With ``--pretrained_dir`` (converted ImageNet
 weights, ``{resnet18,vgg16,mobilenet_v2}_imagenet.msgpack`` of
-``tools/convert_torchvision.py``) each net starts from those weights with
+``tools/port_provision_eval_weights.py``) each net starts from those weights with
 its head initialised afresh; a missing file prints a note and the net
 trains from scratch. Runs on CUDA unless ``--device`` says otherwise; under
 ``torchrun``, over the mesh of ``--run.mesh_data`` × ``--run.mesh_model``
@@ -227,7 +227,7 @@ def main(argv=None):
                    help="checkpoint directory of cli.train_specunet --mode denoise → x ← renorm(x − denoiser(x))")
     p.add_argument("--pretrained_dir", default=None,
                    help="dir of converted ImageNet weights ({model}_imagenet.msgpack, "
-                        "see tools/convert_torchvision.py)")
+                        "see tools/port_provision_eval_weights.py)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda; cpu for tests)")
     add_config_args(p, ClassifierConfig)
     a = p.parse_args(argv)

@@ -1,8 +1,8 @@
 """Score a folder pair in one run: IS, FID and, given audio, FAD (``spectrogramgenai_tpu/cli/verify_metrics.py``).
 
 Reads ``inception_v3.msgpack``, ``clap_audio.msgpack`` and ``manifest.json``
-from ``--weights_dir`` (``tools/provision_eval_weights.py``), the flax files
-of the JAX package through ``core/flax_msgpack.py``:
+from ``--weights_dir`` (``tools/port_provision_eval_weights.py``), flax
+msgpack files read through ``core/flax_msgpack.py``:
 
   python -m spectrogramgenai_tpu_torch.cli.verify_metrics \\
       --real_dir datasets/val_flat --gen_dir gen_images \\
@@ -46,7 +46,7 @@ def run(real_dir: str, gen_dir: str, weights_dir: str, *,
     params = load_inception_params(inception_path)
     if params is None and not allow_random_weights:
         sys.exit(f"no converted InceptionV3 weights at {inception_path} — run "
-                 "tools/provision_eval_weights.py first, or pass "
+                 "tools/port_provision_eval_weights.py first, or pass "
                  "--allow_random_weights 1 for a pipeline smoke run")
     if params is None:
         print("WARNING: random InceptionV3 weights — IS/FID are NOT meaningful")
@@ -79,7 +79,7 @@ def run(real_dir: str, gen_dir: str, weights_dir: str, *,
         clap_path = os.path.join(weights_dir, "clap_audio.msgpack")
         if not os.path.exists(clap_path):
             sys.exit(f"audio dirs given but no CLAP tower at {clap_path} — "
-                     "provision it with tools/provision_eval_weights.py --clap …")
+                     "provision it with tools/port_provision_eval_weights.py --clap …")
         bg = embeddings_for_dir(real_audio_dir, "clap", sample_rate, clap_ckpt=clap_path, device=device)
         ev = embeddings_for_dir(gen_audio_dir, "clap", sample_rate, clap_ckpt=clap_path, device=device)
         results["fad"] = fad_score(bg, ev)
@@ -93,7 +93,7 @@ def main(argv=None) -> dict:
     p.add_argument("--real_dir", required=True, help="folder of real PNGs")
     p.add_argument("--gen_dir", required=True, help="folder of generated PNGs")
     p.add_argument("--weights_dir", default="models/eval",
-                   help="provisioned weights dir (tools/provision_eval_weights.py)")
+                   help="provisioned weights dir (tools/port_provision_eval_weights.py)")
     p.add_argument("--real_audio_dir", default=None, help="real wavs (FAD)")
     p.add_argument("--gen_audio_dir", default=None, help="generated wavs (FAD)")
     p.add_argument("--splits", type=int, default=10)

@@ -353,7 +353,7 @@ class ClapAudioTower(nn.Module):
 
 
 def load_clap_params(ckpt_path: str) -> dict:
-    """The flax variables of a converted CLAP checkpoint (``tools/convert_clap.py``), as nested NumPy dicts."""
+    """The flax variables of a converted CLAP checkpoint (``tools/port_convert_clap.py``), as nested NumPy dicts."""
     from spectrogramgenai_tpu_torch.core import flax_msgpack
 
     return flax_msgpack.read(ckpt_path)

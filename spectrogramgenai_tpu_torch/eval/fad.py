@@ -9,7 +9,7 @@ clamped at 0). The embeddings:
     clips cut to the shortest: a framework-native embedding for relative
     comparisons, not comparable to published CLAP-FAD numbers;
   * ``clap`` mode: the CLAP audio tower (``eval/clap.py``) with converted
-    weights (``tools/convert_clap.py``), the reference's embedder, at 48 kHz;
+    weights (``tools/port_convert_clap.py``), the reference's embedder, at 48 kHz;
   * precomputed embeddings (``.npy`` per clip, or one ``.npz`` / ``.npy`` matrix).
 
 Both modes' log-mel runs on the exact mel kernel (``fused_mel_power``,
@@ -79,7 +79,7 @@ def embeddings_for_dir(audio_dir: str, mode: str = "mel", target_sr: int = FAD_S
         from spectrogramgenai_tpu_torch.eval.clap import clap_embeddings, load_clap_params
 
         if not clap_ckpt:
-            raise ValueError("clap mode needs --clap_ckpt (converted via tools/convert_clap.py)")
+            raise ValueError("clap mode needs --clap_ckpt (converted via tools/port_convert_clap.py)")
         if target_sr != FAD_SAMPLE_RATE:
             # the CLAP front end is fixed at 48 kHz: any other rate would misscale the clips
             raise ValueError(f"clap mode requires sample_rate={FAD_SAMPLE_RATE} "

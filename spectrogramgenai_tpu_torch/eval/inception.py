@@ -196,7 +196,7 @@ def inception_inputs(images_u8: np.ndarray, device: torch.device | str) -> torch
 
 def load_inception_params(ckpt_path: str | None) -> dict | None:
     """The flax variables of a converted checkpoint (``inception_v3.msgpack``
-    of ``tools/convert_torchvision.py``) as nested NumPy dicts, or None when
+    of ``tools/port_convert_torchvision.py``) as nested NumPy dicts, or None when
     no path is given or the file is missing."""
     from spectrogramgenai_tpu_torch.core import flax_msgpack
 

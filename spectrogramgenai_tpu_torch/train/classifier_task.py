@@ -21,7 +21,7 @@ are float32. The denoiser (``denoiser_apply``, a callable on [-1, 1] NHWC
 images, see ``cli/train_classifiers.load_denoiser_apply``) is applied only
 with ``cfg.use_denoiser``, as in the JAX task. :meth:`ClassifierTask.pretrained_variables`
 merges converted ImageNet weights (a flax msgpack of
-``tools/convert_torchvision.py``) into the initial weights, as the JAX
+``tools/port_convert_torchvision.py``) into the initial weights, as the JAX
 task's ``_load_pretrained`` does.
 
 Over a mesh (``core/mesh.py``) the parameters are split by

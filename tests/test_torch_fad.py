@@ -32,7 +32,7 @@ from spectrogramgenai_tpu_torch.cli import verify_metrics as tverify  # noqa: E4
 from spectrogramgenai_tpu_torch.cli.inception_score import load_images  # noqa: E402
 from spectrogramgenai_tpu_torch.eval import fad as tfad  # noqa: E402
 from spectrogramgenai_tpu_torch.eval import inception as tinc  # noqa: E402
-from torch_port_helpers import one_torch_thread, random_flax_variables  # noqa: E402, F401
+from torch_port_helpers import one_torch_thread, port_message, random_flax_variables  # noqa: E402, F401
 
 # dB statistics (mean and std over time of each mel row) against JAX's float32 log-mel
 DB_TOL = 1e-3
@@ -88,7 +88,7 @@ def test_embeddings_for_dir_refusals(tmp_path):
             tfad.embeddings_for_dir(d, mode, device="cpu", **kw)
         with pytest.raises(ValueError) as jexc:
             jfad.embeddings_for_dir(d, mode, **kw)
-        assert str(texc.value) == str(jexc.value)
+        assert str(texc.value) == port_message(str(jexc.value))
     os.makedirs(tmp_path / "empty")
     with pytest.raises(FileNotFoundError, match="no wav files"):
         tfad.embeddings_for_dir(str(tmp_path / "empty"), device="cpu")
@@ -110,7 +110,7 @@ def test_fad_cli_lines_match_jax(tmp_path, capsys):
             main(["--background_dir", bg, *extra])
         assert "need either --background_dir/--eval_dir or --background_emb/--eval_emb" in capsys.readouterr().err
     (jmel, jerr, jself, jemb), (tmel, terr, tself, temb) = lines["jax"], lines["port"]
-    assert terr == jerr and terr.startswith("WARNING: --mode mel is a framework-native embedding")
+    assert terr == port_message(jerr) and terr.startswith("WARNING: --mode mel is a framework-native embedding")
     assert temb == jemb
     assert tself == jself == "FAD (mel embeddings (relative comparisons only — not CLAP-comparable)): 0.000000\n"
     prefix = "FAD (mel embeddings (relative comparisons only — not CLAP-comparable)): "
@@ -153,7 +153,7 @@ def test_verify_metrics_refuses_as_jax_and_scores(tmp_path, capsys):
         jverify.run(real, gen, str(tmp_path / "none"))
     with pytest.raises(SystemExit) as texit:
         tverify.run(real, gen, str(tmp_path / "none"), device="cpu")
-    assert str(texit.value) == str(jexit.value) and "--allow_random_weights 1" in str(texit.value)
+    assert str(texit.value) == port_message(str(jexit.value)) and "--allow_random_weights 1" in str(texit.value)
 
     weights = _weights_dir(tmp_path / "eval", np.concatenate([load_images(real), load_images(gen)]))
     bg = _wav_dir(tmp_path / "bg", seed=7, n=2)

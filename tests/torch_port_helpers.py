@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 import os
+import re
 
 import jax
 import numpy as np
@@ -23,6 +24,13 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def port_message(jax_message: str) -> str:
+    """A JAX CLI's message as the port prints it: the same text, naming the
+    port's weight tools (``tools/port_*.py``) where JAX names its own."""
+    return re.sub(r"tools/(provision_eval_weights|convert_torchvision|convert_clap)\.py", r"tools/port_\1.py",
+                  jax_message)
 
 
 def random_flax_variables(module, *init_args, seed: int = 0) -> dict:
