@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from spectrogramgenai_tpu_torch.utils.profiling import span
+
 
 @torch.no_grad()
 def ema_init(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
@@ -19,12 +21,14 @@ def ema_init(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
 @torch.no_grad()
 def ema_update(ema_params: dict[str, torch.Tensor], params: dict[str, torch.Tensor], step: int,
                beta: float = 0.995, step_start: int = 2000) -> dict[str, torch.Tensor]:
-    """Update ``ema_params`` in place and return it. ``step`` is the train
-    state's step before this update's increment, as in the JAX train step."""
+    """Update ``ema_params`` in place and return it, in the span
+    ``sgai.train.ema``. ``step`` is the train state's step before this
+    update's increment, as in the JAX train step."""
     ema = list(ema_params.values())
     new = [params[k] for k in ema_params]
-    if step < step_start:
-        torch._foreach_copy_(ema, new)
-    else:
-        torch._foreach_lerp_(ema, new, 1.0 - beta)  # e + (1 − β)(p − e)
+    with span("sgai.train.ema"):
+        if step < step_start:
+            torch._foreach_copy_(ema, new)
+        else:
+            torch._foreach_lerp_(ema, new, 1.0 - beta)  # e + (1 − β)(p − e)
     return ema_params

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from spectrogramgenai_tpu_torch.ops.attention import fused_attention
+from spectrogramgenai_tpu_torch.utils.profiling import span
 
 
 def sinusoidal_time_embedding(t: torch.Tensor, channels: int, dtype=torch.float32) -> torch.Tensor:
@@ -75,24 +76,26 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class GroupNorm(nn.GroupNorm):
-    """flax ``nn.GroupNorm(num_groups=1)`` over NCHW."""
+    """flax ``nn.GroupNorm(num_groups=1)`` over NCHW; the span ``sgai.norm.group``, casts included."""
 
     def __init__(self, channels: int):
         super().__init__(1, channels, eps=1e-6)
 
     def forward(self, x):
-        return F.group_norm(x.float(), 1, self.weight.float(), self.bias.float(), self.eps).to(x.dtype)
+        with span("sgai.norm.group"):
+            return F.group_norm(x.float(), 1, self.weight.float(), self.bias.float(), self.eps).to(x.dtype)
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm`` over the last axis."""
+    """flax ``nn.LayerNorm`` over the last axis; the span ``sgai.norm.layer``, casts included."""
 
     def __init__(self, channels: int):
         super().__init__(channels, eps=1e-6)
 
     def forward(self, x):
-        return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(),
-                            self.eps).to(x.dtype)
+        with span("sgai.norm.layer"):
+            return F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(),
+                                self.eps).to(x.dtype)
 
 
 class DoubleConv(nn.Module):

@@ -185,15 +185,16 @@ class RankGroup:
 
 
 class _Slot:
-    """One requested image: a label index and the future collecting it."""
+    """One requested image: a label index, the future collecting it and when it was submitted."""
 
-    __slots__ = ("label", "future", "results", "want")
+    __slots__ = ("label", "future", "results", "want", "submitted")
 
-    def __init__(self, label: int, future: Future, results: list, want: int):
+    def __init__(self, label: int, future: Future, results: list, want: int, submitted: float):
         self.label = label
         self.future = future
         self.results = results  # shared per-request accumulator
         self.want = want
+        self.submitted = submitted  # time.monotonic() at submit
 
 
 class BatchingSampler:
@@ -241,9 +242,11 @@ class BatchingSampler:
         self._queue: queue.Queue[_Slot] = queue.Queue()
         self._stop = threading.Event()
         self._lock = threading.Lock()
+        # queue_wait_seconds: over the served slots, the time from each one's submit to the start of
+        # its batch's sampler call, summed; the mean wait of a served image is it over slots_filled
         self.stats = {"requests": 0, "images": 0, "batches": 0,
                       "slots_filled": 0, "slots_padded": 0, "busy_seconds": 0.0,
-                      "encode_seconds": 0.0, "audio_seconds": 0.0}
+                      "queue_wait_seconds": 0.0, "encode_seconds": 0.0, "audio_seconds": 0.0}
         self._worker = threading.Thread(target=self._run, name="sampler-worker", daemon=True)
         self._worker.start()
 
@@ -272,8 +275,9 @@ class BatchingSampler:
         results: list = []
         with self._lock:
             self.stats["requests"] += 1
+        now = time.monotonic()
         for _ in range(count):
-            self._queue.put(_Slot(int(label), fut, results, count))
+            self._queue.put(_Slot(int(label), fut, results, count, now))
         return fut
 
     def close(self):
@@ -332,6 +336,7 @@ class BatchingSampler:
                 self.stats["slots_padded"] += self.batch_size - len(slots)
                 self.stats["images"] += len(slots)
                 self.stats["busy_seconds"] += dt
+                self.stats["queue_wait_seconds"] += sum(t0 - s.submitted for s in slots)
             for i, s in enumerate(slots):
                 s.results.append(imgs[i])
                 if len(s.results) == s.want and not s.future.done():
@@ -353,6 +358,7 @@ class BatchingSampler:
             s = dict(self.stats)
         busy = s.pop("busy_seconds")
         s["busy_seconds"] = round(busy, 3)
+        s["queue_wait_seconds"] = round(s["queue_wait_seconds"], 3)
         s["encode_seconds"] = round(s["encode_seconds"], 3)
         s["audio_seconds"] = round(s["audio_seconds"], 3)
         if busy > 0:

@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from spectrogramgenai_tpu_torch.bridge import flax_axes
 from spectrogramgenai_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from spectrogramgenai_tpu_torch.utils.profiling import span
 
 
 def onecycle_lr(step: int, total_steps: int, peak_value: float, pct_start: float = 0.3,
@@ -150,20 +151,21 @@ def optimizer_update(opt: torch.optim.Optimizer, masters: list[torch.Tensor], gr
     in its compute dtype) refreshed from the masters. Under a distributed
     ``plan`` (``names``: the parameters' names, in the lists' order) the
     gradients are first reduced over the data group and the refresh gathers
-    the split leaves."""
+    the split leaves. All of it is the span ``sgai.train.optimizer``."""
     distributed = plan is not None and plan.mesh.distributed
-    if distributed:
-        grads = plan.reduce_grads(names, grads)
-    for m, g in zip(masters, grads, strict=True):
-        m.grad = g
-    opt.step()
-    for m in masters:
-        m.grad = None
-    with torch.no_grad():
+    with span("sgai.train.optimizer"):
         if distributed:
-            plan.refresh(names, masters, working)
-        else:
-            torch._foreach_copy_(working, masters)
+            grads = plan.reduce_grads(names, grads)
+        for m, g in zip(masters, grads, strict=True):
+            m.grad = g
+        opt.step()
+        for m in masters:
+            m.grad = None
+        with torch.no_grad():
+            if distributed:
+                plan.refresh(names, masters, working)
+            else:
+                torch._foreach_copy_(working, masters)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ from spectrogramgenai_tpu_torch.train.common import (
     optimizer_update,
 )
 from spectrogramgenai_tpu_torch.train.state import TrainState
+from spectrogramgenai_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -142,34 +143,36 @@ class DiffusionTask:
         batch runs as k microbatches, each with its own t, noise and label-keep
         draw, and their mean gradient makes one update. ``t`` (n,), ``noise``
         (the model-space shape of the batch) and ``keep`` (one flag per
-        microbatch) may be given instead of drawn from ``state.generator``."""
-        k = max(1, int(self.cfg.grad_accum))
-        rows = {"x": batch, "y": labels}
-        if t is not None:
-            rows["t"] = t
-        if noise is not None:
-            rows["noise"] = noise
-        microbatches = microbatch_split(rows, k)
-        if keep is not None:
-            for mb, flag in zip(microbatches, torch.as_tensor(keep).reshape(k), strict=True):
-                mb["keep"] = flag
+        microbatch) may be given instead of drawn from ``state.generator``.
+        The whole step is the span ``sgai.train.step``."""
+        with span("sgai.train.step"):
+            k = max(1, int(self.cfg.grad_accum))
+            rows = {"x": batch, "y": labels}
+            if t is not None:
+                rows["t"] = t
+            if noise is not None:
+                rows["noise"] = noise
+            microbatches = microbatch_split(rows, k)
+            if keep is not None:
+                for mb, flag in zip(microbatches, torch.as_tensor(keep).reshape(k), strict=True):
+                    mb["keep"] = flag
 
-        def loss_fn(mb: dict) -> tuple[torch.Tensor, dict]:
-            x = mb["x"] if encoded else self.encode(mb["x"])
-            t, noise = self._draws(x, state.generator, mb.get("t"), mb.get("noise"))
-            return diffusion_loss(self.model, self.schedule, x, mb["y"], label_drop=self.cfg.label_drop,
-                                  generator=state.generator, t=t, noise=noise, keep=mb.get("keep")), {}
+            def loss_fn(mb: dict) -> tuple[torch.Tensor, dict]:
+                x = mb["x"] if encoded else self.encode(mb["x"])
+                t, noise = self._draws(x, state.generator, mb.get("t"), mb.get("noise"))
+                return diffusion_loss(self.model, self.schedule, x, mb["y"], label_drop=self.cfg.label_drop,
+                                      generator=state.generator, t=t, noise=noise, keep=mb.get("keep")), {}
 
-        names = list(state.params)
-        module = dict(self.model.named_parameters())
-        working = [module[name] for name in names]
-        loss, grads, _ = microbatch_accumulate(loss_fn, microbatches, working)
-        for group in state.opt.param_groups:
-            group["lr"] = self.lr(state.step)
-        optimizer_update(state.opt, list(state.params.values()), grads, working, self.plan, names)
-        ema_update(state.ema_params, state.params, state.step, self.cfg.ema_beta, self.cfg.ema_start)
-        state.step += 1
-        return state, self.mesh.mean_over_data({"train_mse": loss})
+            names = list(state.params)
+            module = dict(self.model.named_parameters())
+            working = [module[name] for name in names]
+            loss, grads, _ = microbatch_accumulate(loss_fn, microbatches, working)
+            for group in state.opt.param_groups:
+                group["lr"] = self.lr(state.step)
+            optimizer_update(state.opt, list(state.params.values()), grads, working, self.plan, names)
+            ema_update(state.ema_params, state.params, state.step, self.cfg.ema_beta, self.cfg.ema_start)
+            state.step += 1
+            return state, self.mesh.mean_over_data({"train_mse": loss})
 
     def _draws(self, x: torch.Tensor, generator: torch.Generator | None, t: torch.Tensor | None,
                noise: torch.Tensor | None) -> tuple[torch.Tensor | None, torch.Tensor | None]:
@@ -200,20 +203,22 @@ class DiffusionTask:
     def sample_latents(self, labels, *, generator: torch.Generator | None = None,
                        x_T: torch.Tensor | None = None, cfg_scale: float | None = None,
                        sampler: str = "ddpm", num_steps: int = 50, randn=None) -> torch.Tensor:
-        """The reverse chain alone: (n, S, S, C) float32, before any clamp.
-        ``randn`` as in ``diffusion.ddpm.ddpm_sample``."""
+        """The reverse chain alone, in the span ``sgai.sample.chain``: (n, S,
+        S, C) float32, before any clamp. ``randn`` as in
+        ``diffusion.ddpm.ddpm_sample``."""
         cfg_scale = self.cfg.cfg_scale if cfg_scale is None else cfg_scale
         labels = torch.as_tensor(labels, dtype=torch.long, device=self.device)
         shape = (self.sample_size, self.sample_size, self.channels)
         kw = dict(generator=generator, x_T=x_T, randn=randn)
-        if sampler == "ddim":
-            return ddim_sample(self.model, self.schedule, labels, shape, num_steps=num_steps,
-                               cfg_scale=cfg_scale, **kw)
-        if sampler == "dpmpp":
-            return dpmpp_sample(self.model, self.schedule, labels, shape, num_steps=num_steps,
-                                cfg_scale=cfg_scale, **kw)
-        if sampler == "ddpm":
-            return ddpm_sample(self.model, self.schedule, labels, shape, cfg_scale=cfg_scale, **kw)
+        with span("sgai.sample.chain"):
+            if sampler == "ddim":
+                return ddim_sample(self.model, self.schedule, labels, shape, num_steps=num_steps,
+                                   cfg_scale=cfg_scale, **kw)
+            if sampler == "dpmpp":
+                return dpmpp_sample(self.model, self.schedule, labels, shape, num_steps=num_steps,
+                                    cfg_scale=cfg_scale, **kw)
+            if sampler == "ddpm":
+                return ddpm_sample(self.model, self.schedule, labels, shape, cfg_scale=cfg_scale, **kw)
         raise ValueError(f"unknown sampler {sampler!r}")
 
     @torch.inference_mode()

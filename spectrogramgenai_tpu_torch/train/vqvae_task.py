@@ -36,6 +36,7 @@ from spectrogramgenai_tpu_torch.train.common import (
     optimizer_update,
 )
 from spectrogramgenai_tpu_torch.train.state import TrainState
+from spectrogramgenai_tpu_torch.utils.profiling import span
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -85,21 +86,23 @@ class VQVAETask:
 
     def train_step(self, state: TrainState, images: torch.Tensor) -> tuple[TrainState, dict[str, torch.Tensor]]:
         """One Adam update on ``images`` ([0, 1] NHWC), updating ``state`` and
-        the codebook in place; returns the mean loss terms and perplexity."""
-        k = max(1, int(self.cfg.grad_accum))
+        the codebook in place; returns the mean loss terms and perplexity.
+        The whole step is the span ``sgai.train.step``."""
+        with span("sgai.train.step"):
+            k = max(1, int(self.cfg.grad_accum))
 
-        def loss_fn(mb: dict):
-            loss, recon, commit, codebook, perplexity = self._losses(renorm_m1_1(mb["x"].float()), train=True)
-            return loss, {"recon_mse": recon, "commitment": commit, "codebook": codebook,
-                          "perplexity": perplexity, "loss": loss}
+            def loss_fn(mb: dict):
+                loss, recon, commit, codebook, perplexity = self._losses(renorm_m1_1(mb["x"].float()), train=True)
+                return loss, {"recon_mse": recon, "commitment": commit, "codebook": codebook,
+                              "perplexity": perplexity, "loss": loss}
 
-        names = list(state.params)
-        module = dict(self.model.named_parameters())
-        working = [module[name] for name in names]
-        _, grads, aux = microbatch_accumulate(loss_fn, microbatch_split({"x": images}, k), working)
-        optimizer_update(state.opt, list(state.params.values()), grads, working, self.plan, names)
-        state.step += 1
-        return state, self.mesh.mean_over_data(aux)
+            names = list(state.params)
+            module = dict(self.model.named_parameters())
+            working = [module[name] for name in names]
+            _, grads, aux = microbatch_accumulate(loss_fn, microbatch_split({"x": images}, k), working)
+            optimizer_update(state.opt, list(state.params.values()), grads, working, self.plan, names)
+            state.step += 1
+            return state, self.mesh.mean_over_data(aux)
 
     @torch.no_grad()
     def eval_step(self, state: TrainState, images: torch.Tensor) -> dict[str, torch.Tensor]:

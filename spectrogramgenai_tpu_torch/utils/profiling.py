@@ -1,23 +1,50 @@
 """Profiling hooks (``spectrogramgenai_tpu/utils/profiling.py``): a
-``torch.profiler`` trace written as a Chrome trace, and a steps/s reporter."""
+``torch.profiler`` trace written as a Chrome trace, and the port's named
+spans inside it.
+
+A span is a ``torch.profiler.record_function`` range named
+``sgai.<layer>.<what>``. It records only while a profiler session records
+(``trace`` below, or any other session a caller opens), in that session,
+on its clock, beside the device kernels launched inside it; its parent is
+the enclosing range on the same thread. With no session recording, and
+while ``torch.compile`` or ``torch.export`` traces, a span is one shared
+context that does nothing, so an exported program holds no profiler op.
+
+    sgai.train.step       one optimizer step of a task's ``train_step``
+    sgai.train.optimizer  ``train/common.optimizer_update``: the gradient
+                          reduction under a mesh, the optimizer's step and
+                          the working copy's refresh from the masters
+    sgai.train.ema        ``core/ema.ema_update``
+    sgai.sample.chain     ``DiffusionTask.sample_latents``: one reverse chain
+    sgai.norm.group       ``models/layers.GroupNorm``, its float32 casts included
+    sgai.norm.layer       ``models/layers.LayerNorm``, its float32 casts included
+"""
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
 import torch
 
 TRACE_FILE = "trace.json"
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range called ``name`` while a profiler session
+    records, else the shared context that does nothing."""
+    if not torch.autograd._profiler_enabled() or torch.compiler.is_compiling() or torch.compiler.is_exporting():
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
 def trace(log_dir: str | None):
     """Trace the CPU and, where there is a card, the CUDA kernels of what
     runs inside into ``<log_dir>/trace.json`` (open it in Perfetto or
-    chrome://tracing); under ``torchrun`` rank r > 0 writes
-    ``trace_rank<r>.json``. No ``log_dir``: nothing is traced."""
+    chrome://tracing), the spans above included; under ``torchrun`` rank
+    r > 0 writes ``trace_rank<r>.json``. No ``log_dir``: nothing is traced."""
     if not log_dir:
         yield None
         return
@@ -29,22 +56,3 @@ def trace(log_dir: str | None):
         yield prof
     rank = int(os.environ.get("RANK", 0))
     prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE if rank == 0 else f"trace_rank{rank}.json"))
-
-
-class StepTimer:
-    """Rolling steps/s reporter for train loops: ``tick()`` returns the rate
-    every ``every`` steps, else None."""
-
-    def __init__(self, every: int = 100):
-        self.every = every
-        self._t0 = time.perf_counter()
-        self._count = 0
-
-    def tick(self) -> float | None:
-        self._count += 1
-        if self._count % self.every == 0:
-            now = time.perf_counter()
-            rate = self.every / (now - self._t0)
-            self._t0 = now
-            return rate
-        return None
